@@ -1,0 +1,195 @@
+"""High-level one-shot API: the full six-scope step.
+
+Counterpart of ``obs_color_monitor_tpu/api.py`` (``ScopeOutputs`` ``:34``,
+``make_full_step`` ``:46``).  One frame in, every scope's statistics and
+rendered images out.  On a CUDA device the step runs kernel K1 (the
+whole-frame pass), K2 (vectorscope + waveform counting) once per component
+family in use, and plain torch for the glue (saturation, histogram,
+hi_max, levels, renders).  On the CPU the same step runs the kernels'
+plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .ops import render as render_ops
+from .ops.convert import planarize_packed
+from .ops.overlays import falsecolor_lut_planes
+from .ops.pipeline import frame_pass, stats_inputs
+from .ops.scope_stats import histogram_from_waveform, vs_wv_counts
+from .ops.stats import apply_channel_select, histogram_hi_max, histogram_levels, saturate_u8
+from .spec import (
+    Colorspace,
+    FalseColorConfig,
+    FocusPeakingConfig,
+    HistogramConfig,
+    VectorscopeConfig,
+    WaveformConfig,
+    ZebraConfig,
+    calc_colorspace,
+    peaking_threshold_fixed,
+    quantize_unorm8,
+)
+
+INPUT_FORMATS = ("rgba", "packed", "planar")
+
+
+class ScopeOutputs(NamedTuple):
+    """The step's outputs: the JAX ``ScopeOutputs`` fields, shapes and dtypes."""
+
+    vectorscope: torch.Tensor  # (256, 256, 4) u8
+    waveform: torch.Tensor  # (256, W', 4) u8
+    histogram: torch.Tensor  # (H', 256, 4) u8
+    zebra: torch.Tensor  # full-res PLANAR (4, H, W) u8
+    falsecolor: torch.Tensor  # (4, H, W) u8
+    focuspeaking: torch.Tensor  # (4, H, W) u8
+    vs_counts: torch.Tensor  # (256, 256) u8
+    wv_counts: torch.Tensor  # (3, 256, W) u8
+    hi_counts: torch.Tensor  # (3, 256) u32
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        """Every field as a host numpy array, by field name."""
+        return {k: v.detach().cpu().numpy() for k, v in self._asdict().items()}
+
+
+def frame_from_numpy(arr: np.ndarray, input_format: str, device) -> torch.Tensor:
+    """A host frame as the step's input on ``device``: ``rgba`` (H, W, 4)
+    u8, ``packed`` (H, W) u32 or int32 (held as int32), ``planar``
+    (4, H, W) u8."""
+    if input_format not in INPUT_FORMATS:
+        raise ValueError(f"unknown input_format {input_format!r}")
+    arr = np.ascontiguousarray(arr)
+    if input_format == "packed" and arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(arr).to(device)
+
+
+def make_full_step(
+    height: int,
+    width: int,
+    cs: Colorspace = Colorspace.BT709,
+    scale: int = 2,
+    vectorscope: VectorscopeConfig | None = None,
+    waveform: WaveformConfig | None = None,
+    histogram: HistogramConfig | None = None,
+    zebra: ZebraConfig | None = None,
+    falsecolor: FalseColorConfig | None = None,
+    focuspeaking: FocusPeakingConfig | None = None,
+    input_format: str = "rgba",
+    *,
+    device,
+):
+    """Build a (frame, tm) -> ScopeOutputs step for a fixed frame shape.
+
+    Statistics run on the ``scale``-downscaled frame (any integer scale);
+    overlays run at full resolution.  ``device`` is where the step runs
+    and where its frames must already be.  input_format:
+
+      * "rgba"   — (H, W, 4) u8, read as its packed view (no copy);
+      * "packed" — the (H, W) 32-bit view of the RGBA bytes, int32 or
+        uint32 (``frame_from_numpy`` / ``ops.convert.host_packed_view``);
+      * "planar" — (4, H, W) u8.
+
+    ``tm`` is the zebra stripe clock, a Python float.
+    """
+    if input_format == "nv12":
+        raise NotImplementedError(
+            "nv12 input needs the NV12 decode kernels K4/K5: ROADMAP.md "
+            "Queue 1, 'NV12/P010 ingest'"
+        )
+    if input_format not in INPUT_FORMATS:
+        raise ValueError(f"unknown input_format {input_format!r}")
+    device = torch.device(device)
+    vs_cfg = vectorscope or VectorscopeConfig()
+    wv_cfg = waveform or WaveformConfig()
+    hi_cfg = histogram or HistogramConfig()
+    zb_cfg = zebra or ZebraConfig()
+    fc_cfg = falsecolor or FalseColorConfig()
+    fp_cfg = focuspeaking or FocusPeakingConfig()
+
+    cs = int(calc_colorspace(cs))
+    # overlay scopes draw with their own colorspace property (reference
+    # zbs_render uses src->cm.colorspace, src/zebra.c:620)
+    zb_cs = int(calc_colorspace(zb_cfg.colorspace))
+    fc_cs = int(calc_colorspace(fc_cfg.colorspace))
+    sel = hi_cfg.components.channel_select()
+    wv_sel = wv_cfg.components.channel_select()
+    wv_yuv = wv_cfg.components.is_yuv
+    hi_yuv = hi_cfg.components.is_yuv
+    peak_rgba = tuple(int(v) for v in quantize_unorm8(np.asarray(fp_cfg.peaking_rgba, np.float32)))
+    use_lut = fc_cfg.use_lut and fc_cfg.lut is not None
+    lut = torch.as_tensor(fc_cfg.lut, device=device) if use_lut else None
+    packed = input_format != "planar"
+    n_scaled = (width // scale) * (height // scale)
+    pass_kw = dict(
+        packed=packed, cs=cs, scale=scale, with_overlays=True,
+        th_low=zb_cfg.th_low, th_high=zb_cfg.th_high, zb_cs=zb_cs, fc_cs=fc_cs,
+        peak_th=peaking_threshold_fixed(fp_cfg.peaking_threshold), peak_rgba=peak_rgba,
+    )
+
+    frame_shape = {"rgba": (height, width, 4), "packed": (height, width),
+                   "planar": (4, height, width)}[input_format]
+
+    def step(frame: torch.Tensor, tm: float) -> ScopeOutputs:
+        if frame.device.type != device.type or (
+            device.index is not None and frame.device.index != device.index
+        ):
+            raise ValueError(f"frame is on {frame.device}, the step on {device}")
+        if tuple(frame.shape) != frame_shape:
+            raise ValueError(f"{input_format} frame must be {frame_shape}, got "
+                             f"{tuple(frame.shape)}")
+        x = frame
+        if input_format == "rgba":
+            x = frame.view(torch.int32).squeeze(-1)  # the packed view, no copy
+        ds, yuv, zb_img, fc_img, fp_img = frame_pass(x, tm, **pass_kw)
+        # K2 once per component family in use (twice only when the
+        # waveform and histogram families differ)
+        counts = {}
+        for fam in {wv_yuv, hi_yuv}:
+            counts[fam] = vs_wv_counts(*stats_inputs(ds, yuv, fam))
+        vs_i32 = counts[wv_yuv][0]
+        vs_u8 = saturate_u8(vs_i32)
+        vs_img = render_ops.render_vectorscope(
+            vs_u8, intensity=vs_cfg.intensity, cs=cs, white=vs_cfg.color_type == 0
+        )
+        wv_counts = apply_channel_select(saturate_u8(counts[wv_yuv][1]), wv_sel)
+        wv_img = render_ops.render_waveform(
+            wv_counts,
+            intensity=wv_cfg.intensity,
+            display=int(wv_cfg.display),
+            n_components=wv_cfg.components.n_components,
+            yuv_mode=wv_yuv,
+        )
+        hi_counts = apply_channel_select(histogram_from_waveform(counts[hi_yuv][1]), sel)
+        hi = histogram_hi_max(
+            hi_counts, sel, n_scaled, hi_cfg.level_fixed, hi_cfg.level_ratio_permille
+        )
+        levels, hi_eff = histogram_levels(hi_counts, hi, sel, hi_cfg.logscale)
+        hi_img = render_ops.render_histogram(
+            levels,
+            hi_eff,
+            level_height=hi_cfg.level_height,
+            display=int(hi_cfg.display),
+            n_components=hi_cfg.components.n_components,
+            yuv_mode=hi_yuv,
+        )
+        if use_lut:
+            planes = planarize_packed(x) if packed else x
+            fc_img = falsecolor_lut_planes(planes, lut, cs=fc_cs, lut_n=lut.shape[0])
+        return ScopeOutputs(
+            vectorscope=vs_img,
+            waveform=wv_img,
+            histogram=hi_img,
+            zebra=zb_img,
+            falsecolor=fc_img,
+            focuspeaking=fp_img,
+            vs_counts=vs_u8,
+            wv_counts=wv_counts,
+            hi_counts=hi_counts.to(torch.uint32),
+        )
+
+    return step

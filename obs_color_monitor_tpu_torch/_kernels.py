@@ -4,9 +4,11 @@ No JAX counterpart: this stands in for the Mosaic compile that
 ``pl.pallas_call`` performs.  Every ``.cu``/``.cuh`` file under
 ``ops/csrc/`` is compiled by ``nvcc`` into ONE shared library with a plain
 C interface (no PyTorch headers, so the build takes seconds), loaded with
-``ctypes``.  The build runs at first use, writes into ``_build/`` next to
-this file, and is keyed on a hash of the sources: an edited kernel
-rebuilds, an unchanged one loads the existing library.
+``ctypes``.  Each ``.cu`` compiles in its own ``nvcc`` process, all started
+together, and one more links the objects.  The build runs at first use,
+writes into ``_build/`` next to this file, and is keyed on a hash of the
+sources: an edited kernel rebuilds, an unchanged one loads the existing
+library.
 
 Each C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
@@ -28,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _VP = ctypes.c_void_p
@@ -37,7 +39,10 @@ _I = ctypes.c_int
 # plain int argument would be passed as 32 bits and cut the address)
 _SIGNATURES = {
     "ocm_frame_pass": [_VP, _VP, _VP, ctypes.c_float, _VP, _VP, _VP, _VP, _VP, _VP],
-    "ocm_scope_stats": [_VP, _VP, _VP, ctypes.c_longlong, _VP, _I, _I, _VP, _VP, _VP],
+    "ocm_scope_stats": [_VP, _VP, _VP, ctypes.c_longlong, _VP, _I, _I, _VP, _VP, _I, _I, _VP],
+    "ocm_fused_overlays": [_VP, _VP, ctypes.c_float, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
+    "ocm_nv12_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP],
+    "ocm_nv12_16_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],
 }
 
 _lock = threading.Lock()
@@ -67,32 +72,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _run_all(cmds: list[list[str]], verbose: bool) -> None:
+    """Run the commands in parallel; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            if verbose:
+                print(out, flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels (if this source hash is not built yet) and return
-    the library path.  The library is written to a temporary name and
+    the library path.  The library is linked under a temporary name and
     renamed, so a concurrent or interrupted build never leaves a torn file."""
     lib = BUILD_DIR / f"libocm_kernels_{source_hash()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
-        if verbose:
-            print(res.stdout + res.stderr, flush=True)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, cmds = [], []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            cmds.append([nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+                         "-c", str(src), "-o", obj])
+        _run_all(cmds, verbose)
+        so = os.path.join(tmp, lib.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", so]], False)
+        os.replace(so, lib)
     return lib
 
 

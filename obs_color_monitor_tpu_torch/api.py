@@ -4,9 +4,9 @@ Counterpart of ``obs_color_monitor_tpu/api.py`` (``ScopeOutputs`` ``:34``,
 ``make_full_step`` ``:46``).  One frame in, every scope's statistics and
 rendered images out.  On a CUDA device the step runs kernel K1 (the
 whole-frame pass), K2 (vectorscope + waveform counting) once per component
-family in use, and plain torch for the glue (saturation, histogram,
-hi_max, levels, renders).  On the CPU the same step runs the kernels'
-plain versions.
+family in use, K4/K5 in front of them for NV12/P010 input, and plain
+torch for the glue (saturation, histogram, hi_max, levels, renders).  On
+the CPU the same step runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -16,26 +16,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .ops import render as render_ops
-from .ops.convert import planarize_packed
-from .ops.overlays import falsecolor_lut_planes
-from .ops.pipeline import frame_pass, stats_inputs
-from .ops.scope_stats import histogram_from_waveform, vs_wv_counts
-from .ops.stats import apply_channel_select, histogram_hi_max, histogram_levels, saturate_u8
-from .spec import (
-    Colorspace,
+from .colorspace import Colorspace, calc_colorspace, quantize_unorm8
+from .config import (
     FalseColorConfig,
     FocusPeakingConfig,
     HistogramConfig,
     VectorscopeConfig,
     WaveformConfig,
     ZebraConfig,
-    calc_colorspace,
-    peaking_threshold_fixed,
-    quantize_unorm8,
 )
+from .golden.reference import peaking_threshold_fixed
+from .ops import render as render_ops
+from .ops.convert import nv12_to_packed, packed_view, planarize_packed
+from .ops.overlays import falsecolor_lut_planes
+from .ops.pipeline import frame_pass, stats_inputs
+from .ops.scope_stats import histogram_from_waveform, vs_wv_counts
+from .ops.stats import apply_channel_select, histogram_hi_max, histogram_levels, saturate_u8
 
-INPUT_FORMATS = ("rgba", "packed", "planar")
+INPUT_FORMATS = ("rgba", "packed", "planar", "nv12")
 
 
 class ScopeOutputs(NamedTuple):
@@ -56,12 +54,24 @@ class ScopeOutputs(NamedTuple):
         return {k: v.detach().cpu().numpy() for k, v in self._asdict().items()}
 
 
-def frame_from_numpy(arr: np.ndarray, input_format: str, device) -> torch.Tensor:
+def check_device(t: torch.Tensor, device: torch.device) -> None:
+    """Raise unless ``t`` lies on ``device`` (any card of its type when the
+    device has no index)."""
+    if t.device.type != device.type or (
+        device.index is not None and t.device.index != device.index
+    ):
+        raise ValueError(f"frame is on {t.device}, the step on {device}")
+
+
+def frame_from_numpy(arr, input_format: str, device):
     """A host frame as the step's input on ``device``: ``rgba`` (H, W, 4)
     u8, ``packed`` (H, W) u32 or int32 (held as int32), ``planar``
-    (4, H, W) u8."""
+    (4, H, W) u8, ``nv12`` a (y, uv) pair of u8 or u16 planes (a pair of
+    tensors)."""
     if input_format not in INPUT_FORMATS:
         raise ValueError(f"unknown input_format {input_format!r}")
+    if input_format == "nv12":
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arr)
     arr = np.ascontiguousarray(arr)
     if input_format == "packed" and arr.dtype == np.uint32:
         arr = arr.view(np.int32)
@@ -80,8 +90,9 @@ def make_full_step(
     falsecolor: FalseColorConfig | None = None,
     focuspeaking: FocusPeakingConfig | None = None,
     input_format: str = "rgba",
+    nv12_shift: int = 0,
     *,
-    device,
+    device="cuda",
 ):
     """Build a (frame, tm) -> ScopeOutputs step for a fixed frame shape.
 
@@ -92,15 +103,14 @@ def make_full_step(
       * "rgba"   — (H, W, 4) u8, read as its packed view (no copy);
       * "packed" — the (H, W) 32-bit view of the RGBA bytes, int32 or
         uint32 (``frame_from_numpy`` / ``ops.convert.host_packed_view``);
-      * "planar" — (4, H, W) u8.
+      * "planar" — (4, H, W) u8;
+      * "nv12"   — a (y (H, W), uv (H/2, W)) pair of u8 planes, decoded on
+        the device in colorimetry ``cs`` to the packed view; with
+        ``nv12_shift`` > 0, P010-family u16 planes, round-shifted to 8 bits
+        in the same decode (``ops.convert.nv12_shift``).
 
     ``tm`` is the zebra stripe clock, a Python float.
     """
-    if input_format == "nv12":
-        raise NotImplementedError(
-            "nv12 input needs the NV12 decode kernels K4/K5: ROADMAP.md "
-            "Queue 1, 'NV12/P010 ingest'"
-        )
     if input_format not in INPUT_FORMATS:
         raise ValueError(f"unknown input_format {input_format!r}")
     device = torch.device(device)
@@ -123,7 +133,7 @@ def make_full_step(
     peak_rgba = tuple(int(v) for v in quantize_unorm8(np.asarray(fp_cfg.peaking_rgba, np.float32)))
     use_lut = fc_cfg.use_lut and fc_cfg.lut is not None
     lut = torch.as_tensor(fc_cfg.lut, device=device) if use_lut else None
-    packed = input_format != "planar"
+    packed = input_format != "planar"  # nv12 decodes to the packed view
     n_scaled = (width // scale) * (height // scale)
     pass_kw = dict(
         packed=packed, cs=cs, scale=scale, with_overlays=True,
@@ -132,19 +142,19 @@ def make_full_step(
     )
 
     frame_shape = {"rgba": (height, width, 4), "packed": (height, width),
-                   "planar": (4, height, width)}[input_format]
+                   "planar": (4, height, width), "nv12": (height, width)}[input_format]
 
-    def step(frame: torch.Tensor, tm: float) -> ScopeOutputs:
-        if frame.device.type != device.type or (
-            device.index is not None and frame.device.index != device.index
-        ):
-            raise ValueError(f"frame is on {frame.device}, the step on {device}")
-        if tuple(frame.shape) != frame_shape:
+    def step(frame, tm: float) -> ScopeOutputs:
+        lead = frame[0] if input_format == "nv12" else frame
+        check_device(lead, device)
+        if tuple(lead.shape) != frame_shape:
             raise ValueError(f"{input_format} frame must be {frame_shape}, got "
-                             f"{tuple(frame.shape)}")
+                             f"{tuple(lead.shape)}")
         x = frame
-        if input_format == "rgba":
-            x = frame.view(torch.int32).squeeze(-1)  # the packed view, no copy
+        if input_format == "nv12":
+            x = nv12_to_packed(frame[0], frame[1], cs=cs, shift=nv12_shift)
+        elif input_format == "rgba":
+            x = packed_view(frame)
         ds, yuv, zb_img, fc_img, fp_img = frame_pass(x, tm, **pass_kw)
         # K2 once per component family in use (twice only when the
         # waveform and histogram families differ)

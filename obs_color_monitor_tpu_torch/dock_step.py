@@ -1,0 +1,425 @@
+"""The whole dock panel as one fixed sequence of launches per frame.
+
+Counterpart of ``obs_color_monitor_tpu/dock_step.py`` (``make_dock_step``
+``:222``, the static step ``:712-857``).  ``make_dock_step`` builds
+(frame, tm) -> composited RGBA panel + statistics: NV12/P010 decode (K4,
+K5), ``ops/fused.analyze`` (K1, K2), the three overlays on the capture
+(K3), graticules, the false-colour key legend, zoom, the vertical-stack
+layout with the reference's aspect rules (src/scope-widget.cpp:99-175) and
+the composite.  Layout is static, so the composite is slices and small
+nearest-resize gathers.  The dynamic ROI (``dynamic_roi=True``) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .api import check_device
+from .colorspace import Colorspace, calc_colorspace, quantize_unorm8
+from .config import (
+    DisplayMode,
+    DockConfig,
+    FalseColorConfig,
+    FocusPeakingConfig,
+    HistogramConfig,
+    ShowKey,
+    VectorscopeColorType,
+    VectorscopeConfig,
+    WaveformConfig,
+    ZebraConfig,
+)
+from .golden.reference import peaking_threshold_fixed
+from .ops import render as render_ops
+from .ops.convert import (
+    OPAQUE_BLACK,
+    nv12_to_packed,
+    packed_view,
+    planarize_packed,
+    planes_to_rgba,
+)
+from .ops.fused import analyze
+from .ops.fused_overlays import fused_overlays_planes
+from .ops.graticule import (
+    falsecolor_key_overlay,
+    histogram_graticule,
+    key_canvas_size,
+    vectorscope_graticule,
+    waveform_graticule,
+)
+from .ops.overlays import falsecolor_lut_planes
+from .ops.stats import apply_channel_select, histogram_hi_max, histogram_levels
+
+# Dock scope order (reference src/scope-widget.cpp:19-25), copied from
+# ``obs_color_monitor_tpu/models/dock.py:40``.
+SCOPE_ORDER = (
+    "roi",
+    "vectorscope",
+    "waveform",
+    "histogram",
+    "zebra",
+    "falsecolor",
+    "focuspeaking",
+)
+
+
+class DockStepOutput(NamedTuple):
+    """The JAX ``DockStepOutput`` fields, shapes and dtypes."""
+
+    panel: torch.Tensor  # (out_h, out_w, 4) u8 composited dock
+    # raw counts, channel selection deferred to read/render
+    vs_counts: torch.Tensor  # (256, 256) u8 saturating
+    wv_counts: torch.Tensor  # (3, 256, sw) u8 saturating, pre-select
+    hi_counts: torch.Tensor  # (3, 256) u32, pre-select
+    # the analyzed full-capture planes of a dynamic-ROI build; None on
+    # static builds (the only ones ported)
+    planes: Optional[torch.Tensor] = None
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        """Every field that is set, as a host numpy array, by field name."""
+        return {k: v.detach().cpu().numpy() for k, v in self._asdict().items() if v is not None}
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index(n_src: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """Source index of each of ``n_out`` nearest-resize samples."""
+    idx = np.minimum((np.arange(n_out) * n_src) // n_out, n_src - 1)
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+def _rgba_view(img: torch.Tensor) -> torch.Tensor:
+    """(H, W, 4) u8 as it is, or the (H, W, 4) u8 bytes of an (H, W) int32
+    packed image (no copy)."""
+    if img.ndim == 2:
+        return img.contiguous().view(torch.uint8).view(img.shape[0], img.shape[1], 4)
+    return img
+
+
+def _resize_nearest_rgba(img: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """(H, W, 4) u8 or packed (H, W) int32 -> (oh, ow, 4) u8 nearest resize
+    (``dock_step._resize_nearest_rgba``), as a plain index gather: the JAX
+    one-hot column matmul exists only because lane gathers are slow on a
+    TPU."""
+    x = _rgba_view(img)
+    h, w = x.shape[0], x.shape[1]
+    return x.index_select(0, _nearest_index(h, oh, x.device)).index_select(
+        1, _nearest_index(w, ow, x.device)
+    )
+
+
+def compose_vstack(patches: list, out_w: int, out_h: int) -> torch.Tensor:
+    """Composite [(x0, y0, patch (h, w, 4) u8)] onto an opaque-black
+    (out_h, out_w, 4) canvas (``dock_step.compose_vstack``).
+
+    Patches that lie inside the canvas in y-sorted, non-overlapping order
+    are padded to full-width row bands on their int32 pixel view and
+    concatenated; anything else (a panel too short for its scope count,
+    whose slots overlap) takes the update-slice loop, which clips like the
+    reference draw and keeps its last-drawn-wins order."""
+    dev = patches[0][2].device if patches else torch.device("cpu")
+    stackable = all(
+        b[1] >= a[1] + a[2].shape[0] for a, b in zip(patches, patches[1:])
+    ) and all(
+        0 <= y0 and y0 + p.shape[0] <= out_h and 0 <= x0 and x0 + p.shape[1] <= out_w
+        for x0, y0, p in patches
+    )
+    if not stackable:
+        canvas = torch.zeros((out_h, out_w, 4), dtype=torch.uint8, device=dev)
+        canvas[..., 3] = 255
+        for x0, y0, patch in patches:
+            h, w = patch.shape[0], patch.shape[1]
+            y0c, x0c = max(y0, 0), max(x0, 0)
+            y1c, x1c = min(y0 + h, out_h), min(x0 + w, out_w)
+            if y1c <= y0c or x1c <= x0c:
+                continue
+            canvas[y0c:y1c, x0c:x1c] = patch[y0c - y0 : y1c - y0, x0c - x0 : x1c - x0]
+        return canvas
+    black = lambda n: torch.full((n, out_w), OPAQUE_BLACK, dtype=torch.int32, device=dev)
+    bands = []
+    y = 0
+    for x0, y0, patch in patches:
+        h, w = patch.shape[0], patch.shape[1]
+        if y0 > y:
+            bands.append(black(y0 - y))
+        p32 = patch.contiguous().view(torch.int32)[..., 0]
+        bands.append(torch.nn.functional.pad(p32, (x0, out_w - x0 - w), value=OPAQUE_BLACK))
+        y = y0 + h
+    if y < out_h:
+        bands.append(black(out_h - y))
+    return torch.cat(bands, dim=0).view(torch.uint8).view(out_h, out_w, 4)
+
+
+def _layout(shown_dims: list[tuple[str, int, int]], cx: int, cy: int, fp_actual: bool):
+    """Static layout (reference draw, src/scope-widget.cpp:117-170;
+    ``dock_step._layout``)."""
+    rects = {}
+    n_src = len(shown_dims)
+    y0 = 0
+    for k, (name, w_src, h_src) in enumerate(shown_dims):
+        w, h = cx, (cy - y0) // (n_src - k)
+        h_slot = h
+        keep_aspect = name in ("roi", "zebra", "falsecolor") or (
+            name == "focuspeaking" and not fp_actual
+        )
+        if name == "vectorscope":
+            w = h = min(w, h)
+        elif keep_aspect and w_src > 0 and h_src > 0:
+            if w * h_src > h * w_src:
+                w = h * w_src // h_src
+            elif h * w_src > w * h_src:
+                h = w * h_src // w_src
+        rects[name] = ((cx - w) // 2, y0, max(w, 1), max(h, 1))
+        y0 += h_slot
+    return rects
+
+
+def make_dock_step(
+    height: int,
+    width: int,
+    cs: Colorspace = Colorspace.BT709,
+    scale: int = 2,
+    out_width: int = 512,
+    out_height: int = 1536,
+    dock: Optional[DockConfig] = None,
+    vectorscope: Optional[VectorscopeConfig] = None,
+    waveform: Optional[WaveformConfig] = None,
+    histogram: Optional[HistogramConfig] = None,
+    zebra: Optional[ZebraConfig] = None,
+    falsecolor: Optional[FalseColorConfig] = None,
+    focuspeaking: Optional[FocusPeakingConfig] = None,
+    overlays_on_capture: bool = True,
+    roi_rect: Optional[tuple[int, int, int, int]] = None,
+    dynamic_roi: bool = False,
+    input_format: str = "rgba",
+    nv12_cs: Optional[int] = None,
+    nv12_shift: int = 0,
+    *,
+    device="cuda",
+):
+    """Build the dock step ``(frame, tm) -> DockStepOutput`` for a fixed
+    frame shape, running on ``device`` (its frames must be there already).
+
+    input_format "rgba" takes an (H, W, 4) u8 frame or its (H, W) int32 /
+    uint32 packed view; "nv12" takes a ``(y (H, W), uv (H/2, W))`` pair of
+    u8 planes, or of P010-family u16 planes with ``nv12_shift`` > 0
+    (``ops.convert.nv12_shift``), decoded on the device in colorimetry
+    ``nv12_cs`` (default ``cs``).  ``overlays_on_capture=True`` (the
+    reference dock) runs the overlays on the scaled, cropped capture; False
+    runs them on the full-resolution frame.  ``roi_rect`` is a static ROI
+    (x0, y0, x1, y1) in scaled coordinates.  ``tm`` is the zebra stripe
+    clock, a Python float.
+    """
+    if dynamic_roi:
+        raise NotImplementedError(
+            "make_dock_step(dynamic_roi=True) needs the dynamic rect in K1 and "
+            "K3: ROADMAP.md Queue 1, 'the dynamic ROI'"
+        )
+    if input_format not in ("rgba", "nv12"):
+        raise ValueError(f"unknown input_format {input_format!r}")
+    device = torch.device(device)
+    dk = dock or DockConfig()
+    vs_cfg = vectorscope or VectorscopeConfig()
+    wv_cfg = waveform or WaveformConfig()
+    hi_cfg = histogram or HistogramConfig()
+    zb_cfg = zebra or ZebraConfig()
+    fc_cfg = falsecolor or FalseColorConfig()
+    fp_cfg = focuspeaking or FocusPeakingConfig()
+
+    csi = int(calc_colorspace(cs))
+    dec_cs = csi if nv12_cs is None else int(calc_colorspace(nv12_cs))
+    # overlay scopes draw with their own colorspace property (reference
+    # zbs_render uses src->cm.colorspace, src/zebra.c:620)
+    zb_cs = int(calc_colorspace(zb_cfg.colorspace))
+    fc_cs = int(calc_colorspace(fc_cfg.colorspace))
+    sw, sh = width // scale, height // scale
+    if roi_rect is not None:
+        # ROI sub-rect in scaled coordinates (reference src/common.c:273-282)
+        x0, y0, x1, y1 = roi_rect
+        x0, y0 = max(0, x0), max(0, y0)
+        x1 = sw if (x1 < 0 or x1 > sw) else x1
+        y1 = sh if (y1 < 0 or y1 > sh) else y1
+        roi_rect = (x0, y0, x1, y1)
+        sw, sh = x1 - x0, y1 - y0
+    wv_yuv = wv_cfg.components.is_yuv
+    hi_yuv = hi_cfg.components.is_yuv
+    wv_n = wv_cfg.components.n_components
+    hi_n = hi_cfg.components.n_components
+    sel = hi_cfg.components.channel_select()
+    wv_sel = wv_cfg.components.channel_select()
+
+    wv_w = sw * (wv_n if wv_cfg.display == DisplayMode.PARADE else 1)
+    wv_h = 256 * (wv_n if wv_cfg.display == DisplayMode.STACK else 1)
+    hi_w = 256 * (hi_n if hi_cfg.display == DisplayMode.PARADE else 1)
+    hi_h = hi_cfg.level_height * (hi_n if hi_cfg.display == DisplayMode.STACK else 1)
+    ov_w, ov_h = (sw, sh) if overlays_on_capture else (width, height)
+    # the key legend extends the false-colour canvas for OUTSIDE/BELOW
+    # (reference src/zebra.c:316-334)
+    fc_w, fc_h = key_canvas_size(fc_cfg.show_key, ov_w, ov_h)
+    dims = {
+        "roi": (sw, sh),
+        "vectorscope": (256, 256),
+        "waveform": (wv_w, wv_h),
+        "histogram": (hi_w, hi_h),
+        "zebra": (ov_w, ov_h),
+        "falsecolor": (fc_w, fc_h),
+        "focuspeaking": (ov_w, ov_h),
+    }
+    shown = [(n, *dims[n]) for n in SCOPE_ORDER if getattr(dk, f"show_{n}")]
+    rects = _layout(shown, out_width, out_height, fp_cfg.actual_size)
+
+    def on_device(a):
+        return None if a is None else torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    vs_grat = on_device(vectorscope_graticule(int(vs_cfg.graticule),
+                                              vs_cfg.graticule_skintone_color, csi))
+    wv_grat = on_device(waveform_graticule(wv_cfg.graticule_lines, sw, int(wv_cfg.display), wv_n))
+    hi_grat = on_device(histogram_graticule(
+        hi_cfg.graticule_vertical_lines, hi_cfg.graticule_horizontal_step,
+        hi_cfg.level_height, int(hi_cfg.display), hi_n, hi_cfg.level_fixed,
+        hi_cfg.level_ratio_permille, hi_cfg.logscale,
+    ))
+    peak_tuple = tuple(int(v) for v in quantize_unorm8(np.asarray(fp_cfg.peaking_rgba, np.float32)))
+    peak_th = peaking_threshold_fixed(fp_cfg.peaking_threshold)
+    fc_lut = on_device(fc_cfg.lut) if (fc_cfg.use_lut and fc_cfg.lut is not None) else None
+    # key legend: a device constant, planar, blended per frame (reference
+    # draws it per frame, src/zebra.c:385-597)
+    fc_key = None
+    if fc_cfg.show_key != ShowKey.NONE:
+        key_rgba = falsecolor_key_overlay(fc_cfg.show_key, ov_w, ov_h, fc_cs,
+                                          lut=fc_cfg.lut if fc_cfg.use_lut else None)
+        fc_key = on_device(np.moveaxis(key_rgba, -1, 0))
+    # K3 computes whichever of the three overlays are shown, never the
+    # user-LUT false colour (torch ops, as in JAX); without a key legend it
+    # writes packed pixels, which the slot resizes read as they are
+    k3_outputs = (dk.show_zebra, dk.show_falsecolor and fc_lut is None, dk.show_focuspeaking)
+    packed_ov = fc_key is None
+    k3_kw = dict(th_low=zb_cfg.th_low, th_high=zb_cfg.th_high, zb_cs=zb_cs, fc_cs=fc_cs,
+                 peak_th=int(peak_th), peak_rgba=peak_tuple, packed_out=packed_ov,
+                 outputs=k3_outputs)
+
+    need_vs = dk.show_vectorscope
+    need_wv = dk.show_waveform
+    need_hi = dk.show_histogram
+    frame_shape = (height, width)
+
+    def _stat_renders(res, n_pixels, images):
+        """Vectorscope/waveform/histogram renders and the step's raw count
+        outputs (``dock_step.make_dock_step._stat_renders``): the drawn
+        images apply the channel selection, the counts do not."""
+        if need_vs:
+            vs_img = render_ops.render_vectorscope(
+                res.vs_counts, intensity=vs_cfg.intensity, cs=csi,
+                white=vs_cfg.color_type == VectorscopeColorType.WHITE,
+            )
+            if vs_grat is not None:
+                vs_img = render_ops.blend_overlay(vs_img, vs_grat)
+            images["vectorscope"] = render_ops.zoom_center(vs_img, zoom=round(vs_cfg.zoom, 3))
+            vs_counts = res.vs_counts
+        else:
+            vs_counts = torch.zeros((256, 256), dtype=torch.uint8, device=device)
+        if need_wv:
+            wv_raw = res.wv_yuv if wv_yuv else res.wv_rgb
+            wv_img = render_ops.render_waveform(
+                apply_channel_select(wv_raw, wv_sel), intensity=wv_cfg.intensity,
+                display=int(wv_cfg.display), n_components=wv_n, yuv_mode=wv_yuv,
+            )
+            if wv_grat is not None:
+                wv_img = render_ops.blend_overlay(wv_img, wv_grat)
+            images["waveform"] = wv_img
+        else:
+            wv_raw = torch.zeros((3, 256, sw), dtype=torch.uint8, device=device)
+        if need_hi:
+            hi_raw = res.hi_yuv if hi_yuv else res.hi_rgb
+            hi_counts = apply_channel_select(hi_raw, sel)
+            hi = histogram_hi_max(hi_counts, sel, n_pixels, hi_cfg.level_fixed,
+                                  hi_cfg.level_ratio_permille)
+            levels, hi_eff = histogram_levels(hi_counts, hi, sel, hi_cfg.logscale)
+            hi_img = render_ops.render_histogram(
+                levels, hi_eff, level_height=hi_cfg.level_height,
+                display=int(hi_cfg.display), n_components=hi_n, yuv_mode=hi_yuv,
+            )
+            if hi_grat is not None:
+                hi_img = render_ops.blend_overlay(hi_img, hi_grat)
+            images["histogram"] = hi_img
+        else:
+            hi_raw = torch.zeros((3, 256), dtype=torch.int32, device=device)
+        return vs_counts, wv_raw, hi_raw
+
+    def step(frame, tm: float) -> DockStepOutput:
+        if input_format == "nv12":
+            y, uv = frame
+            check_device(y, device)
+            if tuple(y.shape) != frame_shape:
+                raise ValueError(f"nv12 y plane must be {frame_shape}, got {tuple(y.shape)}")
+            src = nv12_to_packed(y, uv, cs=dec_cs, shift=nv12_shift)
+        else:
+            check_device(frame, device)
+            if tuple(frame.shape[:2]) != frame_shape:
+                raise ValueError(f"frame must be {frame_shape} (+ 4 bytes), got "
+                                 f"{tuple(frame.shape)}")
+            src = packed_view(frame)
+        # with overlays on the capture the full-res frame feeds analyze
+        # alone, as its packed view; otherwise the overlays need its planes
+        planes = None if overlays_on_capture else planarize_packed(src)
+        res = analyze(
+            src if overlays_on_capture else planes,
+            cs=csi, scale=scale, rect=roi_rect,
+            need_vs=need_vs,
+            need_wv_rgb=need_wv and not wv_yuv,
+            need_wv_yuv=need_wv and wv_yuv,
+            need_hi_rgb=need_hi and not hi_yuv,
+            need_hi_yuv=need_hi and hi_yuv,
+            is_planar=not overlays_on_capture,
+        )
+        images = {}
+        if "roi" in rects:
+            images["roi"] = planes_to_rgba(res.planes)
+        vs_counts, wv_counts, hi_counts = _stat_renders(res, sw * sh, images)
+        ov_src = res.planes if overlays_on_capture else planes
+        zb = fc = fp = None
+        if any(k3_outputs):
+            zb, fc, fp = fused_overlays_planes(ov_src, tm, **k3_kw)
+        to_image = lambda x: x if packed_ov else planes_to_rgba(x)
+        if dk.show_zebra:
+            images["zebra"] = to_image(zb)
+        if dk.show_falsecolor:
+            if fc_lut is not None:
+                fc = falsecolor_lut_planes(ov_src, fc_lut, cs=fc_cs, lut_n=fc_lut.shape[0])
+            if fc_key is not None:
+                if (fc_h, fc_w) != (ov_h, ov_w):
+                    canvas_fc = torch.zeros((4, fc_h, fc_w), dtype=torch.uint8, device=device)
+                    canvas_fc[3] = 255
+                    canvas_fc[:, :ov_h, :ov_w] = fc
+                    fc = canvas_fc
+                fc = render_ops.blend_overlay_planes(fc, fc_key)
+            images["falsecolor"] = fc if fc.ndim == 2 else planes_to_rgba(fc)
+        if dk.show_focuspeaking:
+            images["focuspeaking"] = to_image(fp)
+
+        patches = []
+        for name, w_src, h_src in shown:
+            x0, y0, w, h = rects[name]
+            if name == "focuspeaking" and fp_cfg.actual_size:
+                # 1:1 pixel mapping, centred, cropped to the slot (reference
+                # set_actual_size_matrix, focuspeaking.c:203-220)
+                w, h = min(w, w_src), min(h, h_src)
+                cx0, cy0 = (w_src - w) // 2, (h_src - h) // 2
+                patch = _rgba_view(images[name])[cy0 : cy0 + h, cx0 : cx0 + w]
+                x0 = (out_width - w) // 2
+            else:
+                patch = _resize_nearest_rgba(images[name], h, w)
+            patches.append((x0, y0, patch))
+        return DockStepOutput(
+            panel=compose_vstack(patches, out_width, out_height),
+            vs_counts=vs_counts,
+            wv_counts=wv_counts,
+            hi_counts=hi_counts.to(torch.uint32),
+        )
+
+    step.rects = dict(rects)
+    step.dims = dict(dims)
+    return step

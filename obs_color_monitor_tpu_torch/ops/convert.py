@@ -15,12 +15,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..spec import FIXED_COEFFS, FIXED_SHIFT, LUMA_COEF, Colorspace
+from ..colorspace import FIXED_COEFFS, FIXED_SHIFT, LUMA_COEF, Colorspace
 
 
 def planarize(rgba: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 4) u8 -> (..., 4, H, W) u8 (``convert.planarize``)."""
     return rgba.movedim(-1, -3).contiguous()
+
+
+OPAQUE_BLACK = -(1 << 24)  # 0xFF000000 as int32: alpha 255 in the packed view
 
 
 def as_packed(x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +33,14 @@ def as_packed(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.int32:
         raise TypeError(f"packed frame must be int32 or uint32, got {x.dtype}")
     return x
+
+
+def packed_view(frame: torch.Tensor) -> torch.Tensor:
+    """The (H, W) int32 packed view of an (H, W, 4) u8 RGBA frame (the same
+    bytes, no copy); a packed frame passes through :func:`as_packed`."""
+    if frame.ndim == 3 and frame.shape[-1] == 4 and frame.dtype == torch.uint8:
+        return frame.view(torch.int32).squeeze(-1)
+    return as_packed(frame)
 
 
 def planarize_packed(x32: torch.Tensor) -> torch.Tensor:
@@ -128,3 +139,118 @@ def downscale_planes(planes: torch.Tensor, scale: int) -> torch.Tensor:
 def roi_crop_planes(planes: torch.Tensor, x0: int, y0: int, x1: int, y1: int) -> torch.Tensor:
     """Static ROI sub-rect on planes (``convert.roi_crop_planes``)."""
     return planes[..., y0:y1, x0:x1]
+
+
+# NV12 -> RGB: limited-range inverse conversion in 12-bit fixed point, the
+# constant table of ``convert._NV12_COEF``/``_NV12_KY`` (csrc/ocm_runtime.cpp
+# holds the same): (K_r.Cr, K_g.Cb, K_g.Cr, K_b.Cb) per colorspace.
+_NV12_COEF = {
+    1: (6537, -1605, -3330, 8263),
+    2: (7343, -873, -2183, 8652),
+}
+_NV12_KY = 4769  # round(255/219 * 4096)
+
+
+def check_nv12(y: torch.Tensor, uv: torch.Tensor, shift: int = 0) -> None:
+    """Raise unless (y, uv) is an NV12 plane pair the decode takes: H and W
+    even, ``uv.shape == (H/2, W)`` (``ValueError``); u8 planes without
+    ``shift``, u16 planes with it (``TypeError``, ``convert.nv12_to_packed``
+    ``:410-428``: a forgotten shift on a P010-family buffer must fail, not
+    decode raw 16-bit samples)."""
+    if shift:
+        if y.dtype != torch.uint16 or uv.dtype != torch.uint16:
+            raise TypeError(f"shift={shift} expects u16 wire planes, got {y.dtype}/{uv.dtype}")
+        if not 1 <= int(shift) <= 8:
+            raise ValueError(f"shift must be in 1..8, got {shift}")
+    elif y.dtype != torch.uint8 or uv.dtype != torch.uint8:
+        raise TypeError(f"NV12 planes must be u8 (pass shift= for 16-bit layouts), "
+                        f"got {y.dtype}/{uv.dtype}")
+    if y.ndim != 2 or y.shape[0] % 2 or y.shape[1] % 2 or tuple(uv.shape) != (
+        y.shape[0] // 2, y.shape[1]
+    ):
+        raise ValueError(f"bad NV12 geometry: y {tuple(y.shape)}, uv {tuple(uv.shape)}")
+
+
+def _nv12_rgb_u8(y: torch.Tensor, uv: torch.Tensor, cs: int):
+    """(H, W) int32 R, G, B planes, 0..255, of an NV12 u8 pair: with
+    Y' = Y - 16 and C = Cx - 128, ``clip((4769*Y' + K.C + 2048) >> 12)``
+    (``convert._nv12_rgb_u8``; torch's ``>>`` on int32 is arithmetic, so it
+    floors as the spec's does).  Chroma sample (row // 2, col & ~1) serves
+    the pixel at (row, col)."""
+    kr_cr, kg_cb, kg_cr, kb_cb = _NV12_COEF[int(cs)]
+    yp = (y.to(torch.int32) - 16) * _NV12_KY
+    c = uv.to(torch.int32) - 128
+    cb = c[:, 0::2].repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    cr = c[:, 1::2].repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+
+    def q(acc):
+        return (acc >> 12).clamp_(0, 255)
+
+    return q(yp + kr_cr * cr + 2048), q(yp + kg_cb * cb + kg_cr * cr + 2048), q(
+        yp + kb_cb * cb + 2048
+    )
+
+
+def nv12_to_planes(y: torch.Tensor, uv: torch.Tensor, cs: int = 2) -> torch.Tensor:
+    """NV12 (y (H, W) u8, uv (H/2, W) u8 interleaved CbCr) -> (4, H, W) u8,
+    alpha 255 (``convert.nv12_to_planes``)."""
+    check_nv12(y, uv)
+    r, g, b = _nv12_rgb_u8(y, uv, cs)
+    a = torch.full_like(r, 255)
+    return torch.stack([r, g, b, a]).to(torch.uint8)
+
+
+def nv12_packed_reference(y: torch.Tensor, uv: torch.Tensor, cs: int = 2) -> torch.Tensor:
+    """Plain version of kernel K4: NV12 u8 planes -> the (H, W) int32 packed
+    RGBA view ``r | g << 8 | b << 16 | 0xFF000000``."""
+    check_nv12(y, uv)
+    return _pack_rgb(*_nv12_rgb_u8(y, uv, cs))
+
+
+def _pack_rgb(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return r | (g << 8) | (b << 16) | OPAQUE_BLACK
+
+
+def _shift16_to_u8(plane: torch.Tensor, shift: int) -> torch.Tensor:
+    """The ingest round-shift of a 16-bit sample to 8 bits,
+    ``min((v + half) >> shift, 255)`` (``convert._shift16_to_u8``).  Torch's
+    uint16 has no arithmetic, so the samples widen to int32 first, through
+    their int16 view (which every device converts)."""
+    v = ((plane.view(torch.int16).to(torch.int32) & 0xFFFF) + (1 << (shift - 1))) >> shift
+    return v.clamp_(max=255).to(torch.uint8)
+
+
+def nv12_16_packed_reference(
+    y16: torch.Tensor, uv16: torch.Tensor, cs: int = 2, shift: int = 2
+) -> torch.Tensor:
+    """Plain version of kernel K5: P010-family u16 planes, round-shifted to
+    8 bits, then the K4 decode (``convert._nv12_16_to_packed_xla``)."""
+    check_nv12(y16, uv16, shift)
+    return _pack_rgb(*_nv12_rgb_u8(_shift16_to_u8(y16, shift), _shift16_to_u8(uv16, shift), cs))
+
+
+def nv12_shift(bits: int, msb_aligned: bool = False) -> int:
+    """Round-shift from a 16-bit-LE NV12-layout sample to the 8-bit
+    monitoring domain (``convert.nv12_shift``): bits-8 for LSB-aligned
+    p10/p12/p14/p16 samples, 8 for MSB-aligned P010, 0 for 8-bit NV12."""
+    if bits not in (8, 10, 12, 14, 16):
+        raise ValueError(f"bits must be 8/10/12/14/16, got {bits}")
+    if bits == 8:
+        return 0
+    return 8 if msb_aligned else bits - 8
+
+
+def nv12_to_packed(
+    y: torch.Tensor, uv: torch.Tensor, cs: int = 2, shift: int = 0
+) -> torch.Tensor:
+    """NV12 -> the (H, W) int32 packed-RGBA view, decoded on the planes'
+    device (``convert.nv12_to_packed``).  ``shift`` > 0 takes P010-family
+    u16 planes and fuses the round-shift into the decode
+    (:func:`nv12_shift`).  Kernel K5 runs for ``shift`` > 0, K4 otherwise
+    (``ops/decode.py``), each checking its planes; a CPU tensor runs their
+    plain versions."""
+    from .decode import nv12_16_decode, nv12_decode
+
+    if shift:
+        return nv12_16_decode(y, uv, cs=cs, shift=shift)
+    return nv12_decode(y, uv, cs=cs)

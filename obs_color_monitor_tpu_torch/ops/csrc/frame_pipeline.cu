@@ -39,38 +39,13 @@ struct PassParams {
 };
 
 template <bool PACKED>
-__device__ __forceinline__ void load_px(const void* __restrict__ frame, int h4, int w4,
-                                        int x, int y, int out[4]) {
-  const size_t i = (size_t)y * w4 + x;
-  if (PACKED) {
-    const uint32_t v = __ldg((const uint32_t*)frame + i);
-    out[0] = v & 255;
-    out[1] = (v >> 8) & 255;
-    out[2] = (v >> 16) & 255;
-    out[3] = v >> 24;
-  } else {
-    const uint8_t* f = (const uint8_t*)frame;
-    const size_t plane = (size_t)h4 * w4;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[c] = __ldg(f + c * plane + i);
-  }
-}
-
-template <bool PACKED>
 __global__ void overlay_kernel(const void* __restrict__ frame, const OverlayParams p,
                                const float tm, uint8_t* __restrict__ zb,
                                uint8_t* __restrict__ fc, uint8_t* __restrict__ fp) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= p.w || y >= p.h) return;
-  int c[4], l[4] = {0}, r[4] = {0}, u[4] = {0}, d[4] = {0};
-  load_px<PACKED>(frame, p.h, p.w, x, y, c);
-  const bool has_l = x > 0, has_r = x < p.w - 1, has_u = y > 0, has_d = y < p.h - 1;
-  if (has_l) load_px<PACKED>(frame, p.h, p.w, x - 1, y, l);
-  if (has_r) load_px<PACKED>(frame, p.h, p.w, x + 1, y, r);
-  if (has_u) load_px<PACKED>(frame, p.h, p.w, x, y - 1, u);
-  if (has_d) load_px<PACKED>(frame, p.h, p.w, x, y + 1, d);
-  const OverlayPixel o = overlay_pixel(p, x, y, tm, c, l, r, u, d, has_l, has_r, has_u, has_d);
+  const OverlayPixel o = overlay_at<PACKED>(frame, p, x, y, tm, 0, 0, p.w, p.h);
   const size_t plane = (size_t)p.h * p.w, i = (size_t)y * p.w + x;
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) {

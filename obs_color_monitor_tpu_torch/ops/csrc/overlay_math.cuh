@@ -6,11 +6,16 @@
 // obs_color_monitor_tpu/ops/pallas_overlays.py::_overlay_band_math (:48),
 // which both the frame-pipeline kernel (K1) and the standalone overlay
 // kernel (K3) run.  Here it is one __device__ function on one pixel and
-// its four neighbours, so that K1 (frame_pipeline.cu) and a later K3 port
-// share it.  Everything is integer except the zebra stripe phase, which
-// is float32 as in the shader: floor((float)(x + y + 1) + tm), with x+y+1
-// exact in float32 and one rounding for the add, the same as the JAX
-// op order ((x + y) + 1) + tm.
+// its four neighbours (overlay_at), which K1 (frame_pipeline.cu) and K3
+// (fused_overlays.cu) share.  Everything is integer except the zebra
+// stripe phase, which is float32 as in the shader: floor((float)(x + y + 1)
+// + tm), with x+y+1 exact in float32 and one rounding for the add, the same
+// as the JAX op order ((x + y) + 1) + tm.
+//
+// The optional rect (x0, y0, x1, y1) of K3 moves the focus-peaking edge
+// clamps to the rect borders, as pallas_overlays applies it (:135-158);
+// the caller anchors the zebra phase at the rect origin by passing
+// tm - (x0 + y0).  Without a rect it is the whole frame.
 #pragma once
 
 #include <cstdint>
@@ -76,4 +81,42 @@ __device__ __forceinline__ OverlayPixel overlay_pixel(
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) o.fp[ch] = peak ? (uint8_t)p.peak_rgba[ch] : (uint8_t)c[ch];
   return o;
+}
+
+template <bool PACKED>
+__device__ __forceinline__ void load_px(const void* __restrict__ frame, int h4, int w4,
+                                        int x, int y, int out[4]) {
+  const size_t i = (size_t)y * w4 + x;
+  if (PACKED) {
+    const uint32_t v = __ldg((const uint32_t*)frame + i);
+    out[0] = v & 255;
+    out[1] = (v >> 8) & 255;
+    out[2] = (v >> 16) & 255;
+    out[3] = v >> 24;
+  } else {
+    const uint8_t* f = (const uint8_t*)frame;
+    const size_t plane = (size_t)h4 * w4;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[c] = __ldg(f + c * plane + i);
+  }
+}
+
+// The three overlays of pixel (x, y) of a packed (H, W) 32-bit or planar
+// (4, H, W) u8 frame.  A neighbour counts only inside the rect: the left
+// one where x0 < x < x1, the right one where x < x1 - 1, the upper one
+// where y0 < y < y1, the lower one where y < y1 - 1 (the JAX
+// focus_peaking_planes rule, which defines pixels outside the rect too).
+template <bool PACKED>
+__device__ __forceinline__ OverlayPixel overlay_at(const void* __restrict__ frame,
+                                                   const OverlayParams& p, int x, int y,
+                                                   float tm, int x0, int y0, int x1, int y1) {
+  int c[4], l[4] = {0}, r[4] = {0}, u[4] = {0}, d[4] = {0};
+  load_px<PACKED>(frame, p.h, p.w, x, y, c);
+  const bool has_l = x > x0 && x < x1, has_r = x < x1 - 1;
+  const bool has_u = y > y0 && y < y1, has_d = y < y1 - 1;
+  if (has_l) load_px<PACKED>(frame, p.h, p.w, x - 1, y, l);
+  if (has_r) load_px<PACKED>(frame, p.h, p.w, x + 1, y, r);
+  if (has_u) load_px<PACKED>(frame, p.h, p.w, x, y - 1, u);
+  if (has_d) load_px<PACKED>(frame, p.h, p.w, x, y + 1, d);
+  return overlay_pixel(p, x, y, tm, c, l, r, u, d, has_l, has_r, has_u, has_d);
 }

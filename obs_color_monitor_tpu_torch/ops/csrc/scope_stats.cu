@@ -9,6 +9,10 @@
 //   * vs (256, 256) int32: counts[v, u] over every pixel (no alpha skip);
 //   * wv (3, 256, w) int32: per-column counts of each data plane, skipping
 //     pixels whose mask is 0 (mask null: skip none).
+// Either launch can run alone, so the same two kernels also stand in for
+// the TPU's standalone vectorscope (K7), waveform (K8) and fused (K6)
+// kernels of pallas_stats.py, which the JAX analyze() runs off its fast
+// path.
 //
 // What bounds it: atomics, not bytes (the inputs are 5 B per scaled pixel,
 // ~10 MB at 4K scale 2).  The design keeps the contended increments in
@@ -106,27 +110,34 @@ waveform_kernel(const uint8_t* __restrict__ data, long long plane_stride,
 
 }  // namespace
 
-// vs must be zeroed by the caller; wv is written in full.  Launches on
-// `stream`, allocates nothing, returns cudaGetLastError() after its launches.
+// need_vs / need_wv pick the launches: both (the counterpart of
+// pallas_stats.py::_fused_kernel, K6), the vectorscope alone (::_vs_kernel,
+// K7) or the waveform alone (::_wv_kernel, K8); a skipped output's
+// pointers may be null.  vs must be zeroed by the caller; wv is written in
+// full (an empty frame launches nothing).  Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() after its launches.
 extern "C" int ocm_scope_stats(const void* u, const void* v, const void* data,
                                long long plane_stride, const void* mask, int h, int w,
-                               void* vs, void* wv, void* stream) {
+                               void* vs, void* wv, int need_vs, int need_wv, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      vectorscope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)VS_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      waveform_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-
+  cudaError_t err;
   const long long n = (long long)h * w;
-  const int vs_blocks = (int)((n + VS_PIXELS_PER_BLOCK - 1) / VS_PIXELS_PER_BLOCK);
-  vectorscope_kernel<<<vs_blocks, VS_THREADS, VS_SMEM, st>>>(
-      (const uint8_t*)u, (const uint8_t*)v, n, (int*)vs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  waveform_kernel<<<(w + WV_COLS - 1) / WV_COLS, dim3(WV_COLS, WV_WARPS), WV_SMEM, st>>>(
-      (const uint8_t*)data, plane_stride, (const uint8_t*)mask, h, w, (int*)wv);
+  if (need_vs && n > 0) {
+    err = cudaFuncSetAttribute(vectorscope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)VS_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int vs_blocks = (int)((n + VS_PIXELS_PER_BLOCK - 1) / VS_PIXELS_PER_BLOCK);
+    vectorscope_kernel<<<vs_blocks, VS_THREADS, VS_SMEM, st>>>(
+        (const uint8_t*)u, (const uint8_t*)v, n, (int*)vs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (need_wv && w > 0) {
+    err = cudaFuncSetAttribute(waveform_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)WV_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    waveform_kernel<<<(w + WV_COLS - 1) / WV_COLS, dim3(WV_COLS, WV_WARPS), WV_SMEM, st>>>(
+        (const uint8_t*)data, plane_stride, (const uint8_t*)mask, h, w, (int*)wv);
+  }
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,9 @@ Counterpart of ``obs_color_monitor_tpu/ops/overlays.py``.  Planar
 (4, H, W) u8 in, (4, H, W) u8 out.  Luma and thresholds are the spec's
 integers (the JAX module carries them as integer-valued float32); only the
 zebra stripe phase is float32, as in the shader.  These are the plain
-versions of the overlay half of the frame-pipeline kernel
-(``ops/csrc/overlay_math.cuh``).
+versions of the overlay half of the frame-pipeline kernel K1 and of the
+overlay kernel K3 (``ops/fused_overlays.py``), whose shared per-pixel math
+is ``ops/csrc/overlay_math.cuh``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..spec import FALSECOLOR_BANDS, falsecolor_band_colors_u8, luma_threshold_fixed
+from ..golden.reference import (
+    FALSECOLOR_BANDS,
+    falsecolor_band_colors_u8,
+    luma_threshold_fixed,
+)
 from .convert import luma_planes
 
 BAND_COLORS = falsecolor_band_colors_u8()  # (12, 4) u8
@@ -67,21 +72,43 @@ def falsecolor_lut_planes(
     return lut[i].movedim(-1, -3).contiguous()
 
 
+def clip_rect(rect, w: int, h: int) -> tuple[int, int, int, int]:
+    """An (x0, y0, x1, y1) rect clipped into a (h, w) frame as the JAX
+    overlays clip it: 0 <= x0 <= x1 <= w, 0 <= y0 <= y1 <= h."""
+    x0 = min(max(int(rect[0]), 0), w)
+    y0 = min(max(int(rect[1]), 0), h)
+    return x0, y0, min(max(int(rect[2]), x0), w), min(max(int(rect[3]), y0), h)
+
+
 def focus_peaking_planes(
-    planes: torch.Tensor, th_fixed: int, peaking_color_u8
+    planes: torch.Tensor, th_fixed: int, peaking_color_u8, rect=None
 ) -> torch.Tensor:
     """4-neighbour edge highlight: the sum over RGB and the +-x/+-y cross of
     |neighbour - centre| with edge clamp (a clamped neighbour adds 0),
     compared with the integer ``th_fixed``; peaks take the peaking colour
-    (``overlays.focus_peaking_planes`` without ``rect``)."""
+    (``overlays.focus_peaking_planes``).
+
+    ``rect`` (x0, y0, x1, y1), host integers: the edge clamps move to the
+    rect borders, so pixels inside it equal the focus peaking of the
+    cropped frame.  Outside it the JAX function's rule holds as well: the
+    right/lower difference is cut at x1-1/y1-1 and the left/upper one at
+    x0/y0."""
     rgb = planes[..., :3, :, :].to(torch.int32)
     h, w = rgb.shape[-2], rgb.shape[-1]
-    dx = (rgb[..., :, 1:] - rgb[..., :, :-1]).abs().sum(dim=-3)  # (H, W-1)
-    dy = (rgb[..., 1:, :] - rgb[..., :-1, :]).abs().sum(dim=-3)  # (H-1, W)
-    acc = torch.zeros((h, w), dtype=torch.int32, device=planes.device)
-    acc[:, :-1] += dx  # right neighbour
-    acc[:, 1:] += dx  # left neighbour
-    acc[:-1, :] += dy  # lower neighbour
-    acc[1:, :] += dy  # upper neighbour
+    zeros = lambda: torch.zeros((h, w), dtype=torch.int32, device=planes.device)
+    dxf, dyf = zeros(), zeros()  # forward differences, 0 at the last column/row
+    dxf[:, :-1] = (rgb[..., :, 1:] - rgb[..., :, :-1]).abs().sum(dim=-3)
+    dyf[:-1, :] = (rgb[..., 1:, :] - rgb[..., :-1, :]).abs().sum(dim=-3)
+    if rect is not None:
+        x0, y0, x1, y1 = clip_rect(rect, w, h)
+        dxf[:, max(x1 - 1, 0):] = 0
+        dyf[max(y1 - 1, 0):, :] = 0
+    sxr, syr = zeros(), zeros()  # the left / upper neighbour's difference
+    sxr[:, 1:] = dxf[:, :-1]
+    syr[1:, :] = dyf[:-1, :]
+    if rect is not None:
+        sxr[:, : x0 + 1] = 0
+        syr[: y0 + 1, :] = 0
+    acc = dxf + sxr + dyf + syr
     color = torch.as_tensor(np.asarray(peaking_color_u8, np.uint8), device=planes.device)
     return torch.where(acc >= int(th_fixed), color.view(4, 1, 1), planes)

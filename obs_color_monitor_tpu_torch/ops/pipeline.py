@@ -25,7 +25,8 @@ import functools
 import torch
 
 from .. import _kernels
-from ..spec import FIXED_COEFFS, Colorspace, luma_threshold_fixed
+from ..colorspace import FIXED_COEFFS, Colorspace
+from ..golden.reference import luma_threshold_fixed
 from . import overlays as ov
 from .convert import as_packed, downscale_planes, luma_coef_fixed, planarize_packed
 from .convert import rgb_to_yuv_planes

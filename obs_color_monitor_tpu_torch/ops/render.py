@@ -13,19 +13,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..spec import VECTORSCOPE_TINT, Colorspace, DisplayMode, golden_render
+from ..colorspace import VECTORSCOPE_TINT, Colorspace
+from ..config import DisplayMode
+from ..golden import render as golden_render
+from .convert import OPAQUE_BLACK
 
 DISP_RGB, DISP_YUV = golden_render.DISP_RGB, golden_render.DISP_YUV
 TINT_Q12, TINT_U8 = golden_render.TINT_Q12, golden_render.TINT_U8
 
 VS_SIZE = 256
-_ALPHA = -(1 << 24)  # 0xFF000000 as int32
 
 
 def _compose_rgba(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Three (H, W) int32 planes with values 0..255 -> (H, W, 4) u8, alpha
     255: one int32 compose, then a little-endian byte view."""
-    x = r | (g << 8) | (b << 16) | _ALPHA
+    x = r | (g << 8) | (b << 16) | OPAQUE_BLACK
     return x.contiguous().view(torch.uint8).view(*x.shape, 4)
 
 
@@ -121,3 +123,39 @@ def render_histogram(
         for c in range(3)
     ]
     return _compose_rgba(*chans)
+
+
+def _blend(src: torch.Tensor, alpha: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``(s*a + d*(255-a) + 127) // 255`` in int32, back to u8."""
+    a = alpha.to(torch.int32)
+    return ((src.to(torch.int32) * a + dst.to(torch.int32) * (255 - a) + 127) // 255).to(
+        torch.uint8
+    )
+
+
+def blend_overlay(image: torch.Tensor, overlay: torch.Tensor) -> torch.Tensor:
+    """Integer srcalpha/invsrcalpha blend of an (H, W, 4) u8 overlay onto an
+    (H, W, 4) u8 image; the image's alpha passes through
+    (``render.blend_overlay``, the device twin of ``utils.draw.alpha_blend_u8``)."""
+    rgb = _blend(overlay[..., :3], overlay[..., 3:4], image[..., :3])
+    return torch.cat([rgb, image[..., 3:]], dim=-1)
+
+
+def blend_overlay_planes(planes: torch.Tensor, overlay_planes: torch.Tensor) -> torch.Tensor:
+    """Planar twin of :func:`blend_overlay`: (4, H, W) image and overlay
+    (``render.blend_overlay_planes``)."""
+    rgb = _blend(overlay_planes[:3], overlay_planes[3:4], planes[:3])
+    return torch.cat([rgb, planes[3:]], dim=0)
+
+
+def zoom_center(image: torch.Tensor, zoom: float) -> torch.Tensor:
+    """Vectorscope zoom about the centre (``render.zoom_center``): scale by
+    ``zoom`` with offset 127.5 * (1 - zoom), point-sampled through a host
+    index map."""
+    if zoom <= 1.01:
+        return image
+    n = image.shape[0]
+    ofst = (n / 2 - 0.5) * (1.0 - zoom)
+    src = np.clip(np.floor((np.arange(n) + 0.5 - ofst) / zoom).astype(np.int64), 0, n - 1)
+    idx = torch.as_tensor(src, device=image.device)
+    return image.index_select(0, idx).index_select(1, idx)

@@ -26,12 +26,20 @@ def histogram_from_waveform(wv_i32: torch.Tensor) -> torch.Tensor:
 
 
 def vs_wv_counts_reference(
-    u: torch.Tensor, v: torch.Tensor, data: torch.Tensor, mask: torch.Tensor | None
-) -> tuple[torch.Tensor, torch.Tensor]:
+    u: torch.Tensor | None,
+    v: torch.Tensor | None,
+    data: torch.Tensor | None,
+    mask: torch.Tensor | None,
+    *,
+    need_vs: bool = True,
+    need_wv: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Plain version of K2: ((256, 256) int32 counts[v, u] over every pixel,
     (3, 256, w) int32 per-column waveform of ``data`` skipping pixels whose
-    ``mask`` is 0)."""
-    return vectorscope_counts_uv(u, v), waveform_counts_i32(data, mask)
+    ``mask`` is 0); an output not needed is None."""
+    vs = vectorscope_counts_uv(u, v) if need_vs else None
+    wv = waveform_counts_i32(data, mask) if need_wv else None
+    return vs, wv
 
 
 def _check_plane(name: str, t: torch.Tensor, h: int, w: int) -> None:
@@ -41,45 +49,74 @@ def _check_plane(name: str, t: torch.Tensor, h: int, w: int) -> None:
 
 
 def vs_wv_counts(
-    u: torch.Tensor, v: torch.Tensor, data: torch.Tensor, mask: torch.Tensor | None
-) -> tuple[torch.Tensor, torch.Tensor]:
+    u: torch.Tensor | None,
+    v: torch.Tensor | None,
+    data: torch.Tensor | None,
+    mask: torch.Tensor | None,
+    *,
+    need_vs: bool = True,
+    need_wv: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Vectorscope and waveform counts of planar u8 inputs.
 
-    u, v: (h, w) u8; data: (3, h, w) u8 whose planes are each contiguous
-    (a channel slice of a (C, h, w) tensor is fine); mask: (h, w) u8/bool or
-    None (the YUV family never skips).  A CPU tensor runs the plain
-    version; a CUDA tensor launches K2.
+    u, v: (h, w) u8 (read only with ``need_vs``); data: (3, h, w) u8 whose
+    planes are each contiguous (a channel slice of a (C, h, w) tensor is
+    fine) and mask: (h, w) u8/bool or None (the YUV family never skips),
+    both read only with ``need_wv``.  A cropped plane must be made
+    contiguous first.  With one of the flags off, only the other kernel
+    launches and its output is None: the counterparts of the TPU's
+    standalone vectorscope (K7) and waveform (K8) kernels; with both, of its
+    fused kernel (K6) as well as K2.  A CPU tensor runs the plain version; a
+    CUDA tensor launches K2.
     """
-    if u.device.type == "cpu":
-        return vs_wv_counts_reference(u, v, data, mask)
-    if u.device.type != "cuda":
-        raise ValueError(f"vs_wv_counts: unsupported device {u.device}")
-    h, w = u.shape
-    for name, t in (("u", u), ("v", v)):
-        _check_plane(name, t, h, w)
-    if (
-        data.dtype != torch.uint8
-        or data.shape != (3, h, w)
-        or data.stride()[1:] != (w, 1)
-    ):
-        raise ValueError(f"data must be (3, {h}, {w}) u8 with contiguous planes")
-    if mask is not None:
-        _check_plane("mask", mask, h, w)
-    tensors = [v, data] + ([mask] if mask is not None else [])
-    if any(t.device != u.device for t in tensors):
+    if not (need_vs or need_wv):
+        raise ValueError("vs_wv_counts: nothing to count")
+    ref = u if need_vs else data
+    if ref.device.type == "cpu":
+        return vs_wv_counts_reference(u, v, data, mask, need_vs=need_vs, need_wv=need_wv)
+    if ref.device.type != "cuda":
+        raise ValueError(f"vs_wv_counts: unsupported device {ref.device}")
+    h, w = ref.shape[-2:]
+    tensors = []
+    if need_vs:
+        for name, t in (("u", u), ("v", v)):
+            _check_plane(name, t, h, w)
+        tensors += [u, v]
+    if need_wv:
+        if (
+            data.dtype != torch.uint8
+            or data.shape != (3, h, w)
+            or data.stride()[1:] != (w, 1)
+        ):
+            raise ValueError(f"data must be (3, {h}, {w}) u8 with contiguous planes")
+        tensors.append(data)
+        if mask is not None:
+            _check_plane("mask", mask, h, w)
+            tensors.append(mask)
+    if any(t.device != ref.device for t in tensors):
         raise ValueError("vs_wv_counts: inputs on different devices")
-    vs = torch.zeros((VS_SIZE, VS_SIZE), dtype=torch.int32, device=u.device)
-    wv = torch.empty((3, WV_SIZE, w), dtype=torch.int32, device=u.device)
+    dev = ref.device
+    vs = torch.zeros((VS_SIZE, VS_SIZE), dtype=torch.int32, device=dev) if need_vs else None
+    wv = torch.empty((3, WV_SIZE, w), dtype=torch.int32, device=dev) if need_wv else None
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _kernels.library()
-    with torch.cuda.device(u.device):
+    with torch.cuda.device(dev):
         rc = lib.ocm_scope_stats(
-            u.data_ptr(), v.data_ptr(), data.data_ptr(), data.stride(0),
-            mask.data_ptr() if mask is not None else None, h, w,
-            vs.data_ptr(), wv.data_ptr(), _kernels.stream_handle(u.device),
+            ptr(u) if need_vs else None, ptr(v) if need_vs else None,
+            ptr(data) if need_wv else None, data.stride(0) if need_wv else 0,
+            ptr(mask) if need_wv else None, h, w, ptr(vs), ptr(wv),
+            int(need_vs), int(need_wv), _kernels.stream_handle(dev),
         )
     vs_wv_counts.launches += 1
+    if not need_wv:
+        vs_wv_counts.launches_vs_only += 1
+    elif not need_vs:
+        vs_wv_counts.launches_wv_only += 1
     _kernels.check(rc, "scope_stats")
     return vs, wv
 
 
+# every launch; of which with the vectorscope alone / the waveform alone
 vs_wv_counts.launches = 0
+vs_wv_counts.launches_vs_only = 0
+vs_wv_counts.launches_wv_only = 0

@@ -116,8 +116,16 @@ def test_full_step_matches_jax_and_golden(name, fmt):
 
 
 def test_nv12_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="NV12"):
-        make_full_step(64, 64, input_format="nv12", device="cpu")
+    # NV12 input, once a ROADMAP item, is ported: the step now refuses only
+    # planes whose depth does not match nv12_shift, as the JAX step does
+    y8, uv8 = torch.zeros((64, 64), dtype=torch.uint8), torch.zeros((32, 64), dtype=torch.uint8)
+    y16, uv16 = y8.to(torch.uint16), uv8.to(torch.uint16)
+    nv12 = make_full_step(64, 64, input_format="nv12", device="cpu")
+    p010 = make_full_step(64, 64, input_format="nv12", nv12_shift=8, device="cpu")
+    with pytest.raises(TypeError):
+        nv12((y16, uv16), 0.0)
+    with pytest.raises(TypeError):
+        p010((y8, uv8), 0.0)
 
 
 def test_step_refuses_a_frame_on_another_device_or_shape():

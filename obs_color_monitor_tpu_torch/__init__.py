@@ -9,10 +9,14 @@ copies of the numpy spec modules (``colorspace``, ``config``, ``golden``,
 
 Layout:
   api.py        make_full_step / ScopeOutputs (the six-scope step)
-  dock_step.py  make_dock_step / DockStepOutput (the one-panel dock)
+  dock_step.py  make_dock_step / DockStepOutput (the one-panel dock, with
+                the dynamic ROI)
+  models/       CaptureHub, the six scopes, InteractiveROI and the streaming
+                Dock
   ops/          convert, overlays, stats, render, graticule (plain torch or
                 numpy); kernel wrappers with their plain versions: pipeline
-                (K1), scope_stats (K2), fused_overlays (K3), decode (K4, K5);
+                (K1, and K9's fused_ingest_stats_scale1/2 as K1 + K2),
+                scope_stats (K2), fused_overlays (K3), decode (K4, K5);
                 fused.analyze (K1 + K2)
   ops/csrc/     the CUDA sources, built by nvcc at first use (_kernels.py)
 

@@ -7,8 +7,10 @@ K5), ``ops/fused.analyze`` (K1, K2), the three overlays on the capture
 (K3), graticules, the false-colour key legend, zoom, the vertical-stack
 layout with the reference's aspect rules (src/scope-widget.cpp:99-175) and
 the composite.  Layout is static, so the composite is slices and small
-nearest-resize gathers.  The dynamic ROI (``dynamic_roi=True``) is not
-ported yet.
+nearest-resize gathers.  With ``dynamic_roi=True`` (the JAX step_dyn,
+``:485-710``) the ROI is a (4,) int32 device tensor that K2 and K3 read on
+the device and the slot samplers gather by: a new rect changes no launch
+and no host work.
 """
 
 from __future__ import annotations
@@ -37,10 +39,12 @@ from .golden.reference import peaking_threshold_fixed
 from .ops import render as render_ops
 from .ops.convert import (
     OPAQUE_BLACK,
+    clamp_rect,
     nv12_to_packed,
     packed_view,
     planarize_packed,
     planes_to_rgba,
+    rgba_to_packed,
 )
 from .ops.fused import analyze
 from .ops.fused_overlays import fused_overlays_planes
@@ -75,8 +79,8 @@ class DockStepOutput(NamedTuple):
     vs_counts: torch.Tensor  # (256, 256) u8 saturating
     wv_counts: torch.Tensor  # (3, 256, sw) u8 saturating, pre-select
     hi_counts: torch.Tensor  # (3, 256) u32, pre-select
-    # the analyzed full-capture planes of a dynamic-ROI build; None on
-    # static builds (the only ones ported)
+    # the analyzed full-capture planes (4, sh, sw) u8 of a dynamic-ROI
+    # build; None on static builds
     planes: Optional[torch.Tensor] = None
 
     def to_numpy(self) -> dict[str, np.ndarray]:
@@ -109,6 +113,70 @@ def _resize_nearest_rgba(img: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
     return x.index_select(0, _nearest_index(h, oh, x.device)).index_select(
         1, _nearest_index(w, ow, x.device)
     )
+
+
+def _packed_image(img: torch.Tensor) -> torch.Tensor:
+    """(H, W) int32 packed pixels of an (H, W, 4) u8 image (no copy when it
+    is contiguous) or of a packed image as it is."""
+    if img.ndim == 2:
+        return img
+    return rgba_to_packed(img)
+
+
+def _floordiv(a, b):
+    """Floor division of integer tensors, as JAX's ``//`` (the samplers
+    divide negative numerators)."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _fit_dyn(slot_w: int, slot_h: int, src_w: torch.Tensor, src_h: torch.Tensor):
+    """(fw, fh), 0-d int64 tensors: the largest box inside the static
+    (slot_w, slot_h) band with the dynamic source aspect, by _layout's
+    integer formula, so a rect equal to a static one gives the same panel
+    (``dock_step._fit_dyn``)."""
+    fw = torch.where(slot_w * src_h > slot_h * src_w,
+                     _floordiv(slot_h * src_w, src_h.clamp(min=1)), slot_w)
+    fh = torch.where(slot_h * src_w > slot_w * src_h,
+                     _floordiv(slot_w * src_h, src_w.clamp(min=1)), slot_h)
+    return fw.clamp(min=1), fh.clamp(min=1)
+
+
+def _dyn_sample_rgba(img: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                     valid: torch.Tensor | None = None) -> torch.Tensor:
+    """(H, W, 4) u8 or packed (H, W) int32 -> (len(sy), len(sx), 4) u8, the
+    pixels at rows ``sy`` and columns ``sx`` (int64 device tensors, clamped
+    into the image): a gather of the packed view, rows then columns, exact
+    by construction (``dock_step._dyn_sample_rgba``, whose one-hot matmul
+    is the TPU's way around a lane gather).  ``valid`` (len(sy), len(sx))
+    turns the pixels outside the fitted box opaque black."""
+    x32 = _packed_image(img)
+    h, w = x32.shape
+    out = x32.index_select(0, sy.clamp(0, h - 1)).index_select(1, sx.clamp(0, w - 1))
+    if valid is not None:
+        out = torch.where(valid, out, OPAQUE_BLACK)
+    return out.view(torch.uint8).view(out.shape[0], out.shape[1], 4)
+
+
+def shaded_preview(planes: torch.Tensor, rect) -> torch.Tensor:
+    """The ROI selection over the full capture: 50 % black outside the rect
+    and a green border on its first and last rows and columns (reference
+    draw_roi_range / draw_roi_rect, src/roi.c:207-265;
+    ``models/dock._shaded_preview``).  ``rect`` (x0, y0, x1, y1) is a host
+    sequence or a (4,) int32 tensor on the planes' device, used as given;
+    (4, H, W) u8 in, (H, W, 4) u8 out."""
+    r = torch.as_tensor(rect, dtype=torch.int32, device=planes.device)
+    h, w = planes.shape[-2], planes.shape[-1]
+    ri = torch.arange(h, dtype=torch.int32, device=planes.device)[:, None]
+    ci = torch.arange(w, dtype=torch.int32, device=planes.device)[None, :]
+    in_cols = (ci >= r[0]) & (ci < r[2])
+    in_rows = (ri >= r[1]) & (ri < r[3])
+    border = (((ri == r[1]) | (ri == r[3] - 1)) & in_cols) | (
+        ((ci == r[0]) | (ci == r[2] - 1)) & in_rows)
+    p = planes.to(torch.int32)
+    shaded = torch.where(in_rows & in_cols, p[:3], (p[:3] * 128) // 255)
+    chans = [shaded[0], shaded[1], shaded[2], p[3]]
+    chans = [torch.where(border, g, c) for g, c in zip((0, 255, 0, 255), chans)]
+    return planes_to_rgba(torch.stack(chans).to(torch.uint8))
 
 
 def compose_vstack(patches: list, out_w: int, out_h: int) -> torch.Tensor:
@@ -145,7 +213,7 @@ def compose_vstack(patches: list, out_w: int, out_h: int) -> torch.Tensor:
         h, w = patch.shape[0], patch.shape[1]
         if y0 > y:
             bands.append(black(y0 - y))
-        p32 = patch.contiguous().view(torch.int32)[..., 0]
+        p32 = rgba_to_packed(patch)
         bands.append(torch.nn.functional.pad(p32, (x0, out_w - x0 - w), value=OPAQUE_BLACK))
         y = y0 + h
     if y < out_h:
@@ -201,7 +269,8 @@ def make_dock_step(
     device="cuda",
 ):
     """Build the dock step ``(frame, tm) -> DockStepOutput`` for a fixed
-    frame shape, running on ``device`` (its frames must be there already).
+    frame shape, running on ``device`` (its frames must be there already);
+    with ``dynamic_roi`` the step is ``(frame, tm, rect)``.
 
     input_format "rgba" takes an (H, W, 4) u8 frame or its (H, W) int32 /
     uint32 packed view; "nv12" takes a ``(y (H, W), uv (H/2, W))`` pair of
@@ -212,12 +281,18 @@ def make_dock_step(
     runs them on the full-resolution frame.  ``roi_rect`` is a static ROI
     (x0, y0, x1, y1) in scaled coordinates.  ``tm`` is the zebra stripe
     clock, a Python float.
+
+    ``dynamic_roi=True`` takes the ROI per frame as ``rect``, a (4,) int32
+    tensor on ``device`` in scaled coordinates, clamped as
+    :func:`ops.convert.clamp_rect` says: the statistics and the overlay
+    slots equal the static ``roi_rect`` build's at the same rect, the
+    waveform counts stay full-width with the columns outside the rect zero,
+    the ROI row shows the full capture with the selection shaded, and the
+    output's ``planes`` hold the full scaled capture.  Nothing in the step
+    reads the rect on the host, so every rect runs the same launches with
+    the same shapes (a CUDA graph of one step replays for any rect).  It
+    excludes ``roi_rect`` and needs ``overlays_on_capture=True``.
     """
-    if dynamic_roi:
-        raise NotImplementedError(
-            "make_dock_step(dynamic_roi=True) needs the dynamic rect in K1 and "
-            "K3: ROADMAP.md Queue 1, 'the dynamic ROI'"
-        )
     if input_format not in ("rgba", "nv12"):
         raise ValueError(f"unknown input_format {input_format!r}")
     device = torch.device(device)
@@ -268,6 +343,16 @@ def make_dock_step(
         "falsecolor": (fc_w, fc_h),
         "focuspeaking": (ov_w, ov_h),
     }
+    if dynamic_roi:
+        if roi_rect is not None:
+            raise ValueError("dynamic_roi and roi_rect are mutually exclusive")
+        if not overlays_on_capture:
+            raise NotImplementedError(
+                "dynamic_roi requires overlays_on_capture=True (the reference dock's "
+                "configuration)")
+        # the overlay slots become full static bands; the rect's aspect is
+        # fitted inside them per frame
+        dims = {**dims, "zebra": (0, 0), "falsecolor": (0, 0), "focuspeaking": (0, 0)}
     shown = [(n, *dims[n]) for n in SCOPE_ORDER if getattr(dk, f"show_{n}")]
     rects = _layout(shown, out_width, out_height, fp_cfg.actual_size)
 
@@ -288,7 +373,7 @@ def make_dock_step(
     # key legend: a device constant, planar, blended per frame (reference
     # draws it per frame, src/zebra.c:385-597)
     fc_key = None
-    if fc_cfg.show_key != ShowKey.NONE:
+    if fc_cfg.show_key != ShowKey.NONE and not dynamic_roi:
         key_rgba = falsecolor_key_overlay(fc_cfg.show_key, ov_w, ov_h, fc_cs,
                                           lut=fc_cfg.lut if fc_cfg.use_lut else None)
         fc_key = on_device(np.moveaxis(key_rgba, -1, 0))
@@ -349,19 +434,148 @@ def make_dock_step(
             hi_raw = torch.zeros((3, 256), dtype=torch.int32, device=device)
         return vs_counts, wv_raw, hi_raw
 
-    def step(frame, tm: float) -> DockStepOutput:
+    def source(frame) -> torch.Tensor:
+        """The frame's packed view on the device, decoded from NV12/P010."""
         if input_format == "nv12":
             y, uv = frame
             check_device(y, device)
             if tuple(y.shape) != frame_shape:
                 raise ValueError(f"nv12 y plane must be {frame_shape}, got {tuple(y.shape)}")
-            src = nv12_to_packed(y, uv, cs=dec_cs, shift=nv12_shift)
-        else:
-            check_device(frame, device)
-            if tuple(frame.shape[:2]) != frame_shape:
-                raise ValueError(f"frame must be {frame_shape} (+ 4 bytes), got "
-                                 f"{tuple(frame.shape)}")
-            src = packed_view(frame)
+            return nv12_to_packed(y, uv, cs=dec_cs, shift=nv12_shift)
+        check_device(frame, device)
+        if tuple(frame.shape[:2]) != frame_shape:
+            raise ValueError(f"frame must be {frame_shape} (+ 4 bytes), got "
+                             f"{tuple(frame.shape)}")
+        return packed_view(frame)
+
+    if dynamic_roi:
+        # the JAX step_dyn (``dock_step.py:485-710``): every index the slot
+        # samplers gather by is an integer tensor computed on the device from
+        # the clamped rect; the static sizes are built here, once
+        arange = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+        idx = {name: (arange(rects[name][2]), arange(rects[name][3])) for name, _, _ in shown}
+        wv_sy = None
+        if "waveform" in rects:
+            hs, r_img = rects["waveform"][3], 256 * (
+                wv_n if wv_cfg.display == DisplayMode.STACK else 1)
+            wv_sy = torch.as_tensor(np.minimum(np.arange(hs) * r_img // hs, r_img - 1),
+                                    dtype=torch.int64, device=device)
+        # the key legend: a texture at the band's resolution, sampled by the
+        # display fraction of the dynamic fit and blended over it (the canvas
+        # maps affinely onto the fitted box; ``dock_step.py:387-405``)
+        fc_key_dyn = None
+        if "falsecolor" in rects and fc_cfg.show_key != ShowKey.NONE:
+            ws_fc, hs_fc = rects["falsecolor"][2], rects["falsecolor"][3]
+            base_w = ws_fc * 10 // 11 if fc_cfg.show_key == ShowKey.OUTSIDE else ws_fc
+            base_h = hs_fc * 10 // 12 if fc_cfg.show_key == ShowKey.BELOW else hs_fc
+            key = falsecolor_key_overlay(fc_cfg.show_key, base_w, base_h, fc_cs,
+                                         lut=fc_cfg.lut if fc_cfg.use_lut else None)
+            fc_key_dyn = torch.as_tensor(np.ascontiguousarray(key), device=device)
+        parade = wv_cfg.display == DisplayMode.PARADE and wv_n > 1
+
+        def key_patch(img, ws, hs, jj, ii, rx0, ry0, rw1, rh1):
+            """The false-colour slot with its key legend: the canvas (the rect
+            extended by the key strip) fitted into the band, the rect's pixels
+            sampled through it and the legend texture blended over the box."""
+            cw = _floordiv(rw1 * 11, 10) if fc_cfg.show_key == ShowKey.OUTSIDE else rw1
+            ch = _floordiv(rh1 * 12, 10) if fc_cfg.show_key == ShowKey.BELOW else rh1
+            fw, fh = _fit_dyn(ws, hs, cw, ch)
+            dxo = _floordiv(ws - fw, 2)
+            cx, cy = _floordiv((jj - dxo) * cw, fw), _floordiv(ii * ch, fh)
+            col_in, row_in = (jj >= dxo) & (jj < dxo + fw), ii < fh
+            valid = (row_in & (cy < rh1))[:, None] & (col_in & (cx < rw1))[None, :]
+            base = _dyn_sample_rgba(img, ry0 + torch.minimum(cy.clamp(min=0), rh1 - 1),
+                                    rx0 + torch.minimum(cx.clamp(min=0), rw1 - 1), valid)
+            lh, lw = fc_key_dyn.shape[0], fc_key_dyn.shape[1]
+            lg = _dyn_sample_rgba(fc_key_dyn, _floordiv(ii * lh, fh).clamp(0, lh - 1),
+                                  _floordiv((jj - dxo) * lw, fw).clamp(0, lw - 1))
+            a = torch.where(row_in[:, None] & col_in[None, :], lg[..., 3].to(torch.int32), 0)
+            a = a[..., None]
+            rgb = (lg[..., :3].to(torch.int32) * a + base[..., :3].to(torch.int32) * (255 - a)
+                   + 127) // 255
+            return torch.cat([rgb.to(torch.uint8), base[..., 3:]], dim=-1)
+
+        def step_dyn(frame, tm: float, rect: torch.Tensor) -> DockStepOutput:
+            src = source(frame)
+            check_device(rect, device)
+            if rect.dtype != torch.int32 or rect.shape != (4,):
+                raise ValueError(f"rect must be a (4,) int32 tensor, got {tuple(rect.shape)} "
+                                 f"{rect.dtype}")
+            res = analyze(
+                src, cs=csi, scale=scale, need_vs=need_vs,
+                need_wv_rgb=need_wv and not wv_yuv, need_wv_yuv=need_wv and wv_yuv,
+                need_hi_rgb=need_hi and not hi_yuv, need_hi_yuv=need_hi and hi_yuv,
+                rect_dyn=rect,
+            )
+            rect_c = clamp_rect(rect, sw, sh)
+            rx0, ry0, rx1, ry1 = rect_c.to(torch.int64)
+            rw, rh = rx1 - rx0, ry1 - ry0
+            rw1, rh1 = rw.clamp(min=1), rh.clamp(min=1)
+            images = {}
+            if "roi" in rects:
+                images["roi"] = shaded_preview(res.planes, rect_c)
+            # the histogram's levels use the rect's pixel count
+            vs_counts, wv_counts, hi_counts = _stat_renders(res, rw * rh, images)
+            zb = fc = fp = None
+            if any(k3_outputs):
+                zb, fc, fp = fused_overlays_planes(res.planes, tm, rect=rect, **k3_kw)
+            if dk.show_falsecolor and fc_lut is not None:
+                fc = planes_to_rgba(falsecolor_lut_planes(res.planes, fc_lut, cs=fc_cs,
+                                                          lut_n=fc_lut.shape[0]))
+            images.update(zebra=zb, falsecolor=fc, focuspeaking=fp)
+
+            patches = []
+            for name, _, _ in shown:
+                x0s, y0s, ws, hs = rects[name]
+                img = images[name]
+                if name in ("roi", "vectorscope", "histogram"):
+                    patches.append((x0s, y0s, _resize_nearest_rgba(img, hs, ws)))
+                    continue
+                jj, ii = idx[name]
+                if name == "waveform":
+                    # the rect's columns stretched across the slot; in parade
+                    # mode through the per-component segments first
+                    if parade:
+                        m = _floordiv(jj * (rw1 * wv_n), ws)
+                        cseg = _floordiv(m, rw1)
+                        src_j = cseg * sw + rx0 + (m - cseg * rw1)
+                    else:
+                        src_j = rx0 + _floordiv(jj * rw1, ws)
+                    patches.append((x0s, y0s, _dyn_sample_rgba(img, wv_sy, src_j)))
+                    continue
+                if name == "falsecolor" and fc_key_dyn is not None:
+                    patch = key_patch(img, ws, hs, jj, ii, rx0, ry0, rw1, rh1)
+                    patches.append((x0s, y0s, patch))
+                    continue
+                # content x-centred and top-aligned in its band, as _layout
+                # places the static patch
+                if name == "focuspeaking" and fp_cfg.actual_size:
+                    # 1:1 pixels, centred on the rect, cropped to the slot
+                    fw, fh = rw1.clamp(max=ws), rh1.clamp(max=hs)
+                    dxo = _floordiv(ws - fw, 2)
+                    src_j = rx0 + _floordiv(rw1 - fw, 2) + (jj - dxo)
+                    sy = ry0 + _floordiv(rh1 - fh, 2) + ii
+                else:
+                    fw, fh = _fit_dyn(ws, hs, rw1, rh1)
+                    dxo = _floordiv(ws - fw, 2)
+                    src_j = rx0 + _floordiv((jj - dxo) * rw1, fw)
+                    sy = ry0 + _floordiv(ii * rh1, fh)
+                valid = (ii < fh)[:, None] & ((jj >= dxo) & (jj < dxo + fw))[None, :]
+                patches.append((x0s, y0s, _dyn_sample_rgba(img, sy, src_j, valid)))
+            return DockStepOutput(
+                panel=compose_vstack(patches, out_width, out_height),
+                vs_counts=vs_counts,
+                wv_counts=wv_counts,
+                hi_counts=hi_counts.to(torch.uint32),
+                planes=res.planes,
+            )
+
+        step_dyn.rects = dict(rects)
+        step_dyn.dims = dict(dims)
+        return step_dyn
+
+    def step(frame, tm: float) -> DockStepOutput:
+        src = source(frame)
         # with overlays on the capture the full-res frame feeds analyze
         # alone, as its packed view; otherwise the overlays need its planes
         planes = None if overlays_on_capture else planarize_packed(src)

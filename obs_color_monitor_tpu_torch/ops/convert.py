@@ -43,6 +43,14 @@ def packed_view(frame: torch.Tensor) -> torch.Tensor:
     return as_packed(frame)
 
 
+def rgba_to_packed(rgba: torch.Tensor) -> torch.Tensor:
+    """(..., 4) u8 pixels -> their (...) int32 packed view (byte 0 = R), a
+    view when they are contiguous.  The flat view first: a size-1 dimension
+    may carry any stride, which a dtype view refuses."""
+    x = rgba.contiguous()
+    return x.reshape(-1).view(torch.int32).view(x.shape[:-1])
+
+
 def planarize_packed(x32: torch.Tensor) -> torch.Tensor:
     """(..., H, W) packed RGBA -> (..., 4, H, W) u8; byte 0 (R) is the low
     byte (``convert.planarize_packed``)."""
@@ -139,6 +147,58 @@ def downscale_planes(planes: torch.Tensor, scale: int) -> torch.Tensor:
 def roi_crop_planes(planes: torch.Tensor, x0: int, y0: int, x1: int, y1: int) -> torch.Tensor:
     """Static ROI sub-rect on planes (``convert.roi_crop_planes``)."""
     return planes[..., y0:y1, x0:x1]
+
+
+def clamp_rect(rect, w: int, h: int, device=None) -> torch.Tensor:
+    """A dynamic ROI (x0, y0, x1, y1) clamped into a (h, w) frame as the JAX
+    dynamic step clamps it (``dock_step.py:495-498``): ``x0 = clip(x0, 0,
+    w)``, ``x1 = clip(x1, x0, w)``, the same for y, so a negative or
+    reversed x1 gives an empty rect.  ``rect`` is a (4,) integer tensor or
+    a host sequence (then copied to ``device``); the result is a (4,)
+    int32 tensor on the same device, computed there: the values are never
+    read on the host."""
+    r = torch.as_tensor(rect, dtype=torch.int32, device=device)
+    x0, y0 = r[0].clamp(0, w), r[1].clamp(0, h)
+    x1, y1 = torch.maximum(r[2], x0).clamp(max=w), torch.maximum(r[3], y0).clamp(max=h)
+    return torch.stack([x0, y0, x1, y1])
+
+
+def rect_mask(rect_c: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(h, w) bool: the pixels inside a clamped rect (:func:`clamp_rect`)."""
+    ri = torch.arange(h, dtype=torch.int32, device=rect_c.device)[:, None]
+    ci = torch.arange(w, dtype=torch.int32, device=rect_c.device)[None, :]
+    return (ri >= rect_c[1]) & (ri < rect_c[3]) & (ci >= rect_c[0]) & (ci < rect_c[2])
+
+
+def nv12_device_planes(y, uv, device="cuda"):
+    """(y, uv) NV12 planes on ``device`` with ONE host-to-device copy when
+    they are adjacent views of one host buffer (``convert.nv12_device_planes``
+    ``:436``).
+
+    NV12 arrives as one contiguous buffer on every wire that carries it (a
+    file read, a decoder output), so the planes a caller passes are usually
+    adjacent views: the joint (H + H/2, W) block is copied once and split
+    by row slices on the device.  Non-adjacent planes (or dtypes other than
+    u8 / u16) take two copies; tensors pass through untouched."""
+    if isinstance(y, torch.Tensor) and isinstance(uv, torch.Tensor):
+        return y, uv
+    y, uv = np.asarray(y), np.asarray(uv)
+    if (
+        y.dtype == uv.dtype
+        and y.dtype in (np.uint8, np.uint16)
+        and y.ndim == 2
+        and uv.ndim == 2
+        and y.shape[1] == uv.shape[1]
+        and y.flags.c_contiguous
+        and uv.flags.c_contiguous
+        and y.ctypes.data + y.nbytes == uv.ctypes.data
+    ):
+        h, w = y.shape
+        joint = np.lib.stride_tricks.as_strided(y, shape=(h + uv.shape[0], w), strides=y.strides)
+        dev = torch.from_numpy(joint).to(device)
+        return dev[:h], dev[h:]
+    return (torch.from_numpy(np.ascontiguousarray(y)).to(device),
+            torch.from_numpy(np.ascontiguousarray(uv)).to(device))
 
 
 # NV12 -> RGB: limited-range inverse conversion in 12-bit fixed point, the

@@ -14,8 +14,9 @@
 //
 // The optional rect (x0, y0, x1, y1) of K3 moves the focus-peaking edge
 // clamps to the rect borders, as pallas_overlays applies it (:135-158);
-// the caller anchors the zebra phase at the rect origin by passing
-// tm - (x0 + y0).  Without a rect it is the whole frame.
+// K3 anchors the zebra phase at the rect origin by passing
+// tm - (x0 + y0) (pallas_overlays.py:81).  Without a rect it is the whole
+// frame.
 #pragma once
 
 #include <cstdint>
@@ -56,7 +57,8 @@ __device__ __forceinline__ OverlayPixel overlay_pixel(
 
   // zebra: stripes where th_low <= luma <= th_high and phase mod 6 < 3
   const int luma_zb = luma_fixed(p.kl_zb, c);
-  int phase = (int)floorf((float)(x + y + 1) + tm);
+  // one float32 add, rounded to nearest, never contracted with anything
+  int phase = (int)floorf(__fadd_rn((float)(x + y + 1), tm));
   phase = ((phase % 6) + 6) % 6;  // floored modulo, as JAX's %
   const bool stripe = luma_zb >= p.zb_lo && luma_zb <= p.zb_hi && phase < 3;
 #pragma unroll

@@ -30,9 +30,18 @@
 //     Warps on other rows share counters, so the increments are shared
 //     atomics; the block then stores its strip with plain stores (no
 //     global atomics, no zeroing of the output).
+//
+// The dynamic ROI (an optional (4,) int32 rect in device memory,
+// dyn_rect.cuh) restricts both counts to the pixels inside it, as the JAX
+// analyze(rect_dyn=) masks them (ops/fused.py:172-188): the vectorscope
+// tests each pixel's row and column against the rect, the waveform counts
+// only the rect's rows and leaves the columns outside it zero.  The grids
+// stay sized by (h, w), so a new rect changes no launch.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "dyn_rect.cuh"
 
 namespace {
 
@@ -48,25 +57,37 @@ constexpr int WV_WARPS = 32;  // rows in flight per block
 constexpr int WV_COUNTERS = 3 * WV_BINS * WV_COLS;
 constexpr size_t WV_SMEM = WV_COUNTERS * sizeof(int);  // 96 KB
 
+// RECT: count only the pixels inside the clamped dynamic rect (the flat
+// index is split into row and column; the frame has < 2^31 pixels).
+template <bool RECT>
 __global__ void __launch_bounds__(VS_THREADS)
 vectorscope_kernel(const uint8_t* __restrict__ u, const uint8_t* __restrict__ v,
-                   long long n, int* __restrict__ vs) {
+                   long long n, int w, int h, const int* __restrict__ rect,
+                   int* __restrict__ vs) {
   extern __shared__ uint32_t hist[];  // word k: bin 2k in bits 0-15, 2k+1 in 16-31
   for (int k = threadIdx.x; k < VS_WORDS; k += blockDim.x) hist[k] = 0;
+  DynRect r{0, 0, w, h};
+  if (RECT) r = load_dyn_rect(rect, w, h);
   __syncthreads();
   const long long begin = (long long)blockIdx.x * VS_PIXELS_PER_BLOCK;
   const long long end = min(begin + VS_PIXELS_PER_BLOCK, n);
   const int lane = threadIdx.x & 31;
   // the trip count is the same for every thread, so the warp votes below
-  // always see all 32 lanes; lane 0 of each warp is valid on every trip
+  // always see all 32 lanes
   for (long long base = begin; base < end; base += blockDim.x) {
     const long long i = base + threadIdx.x;
-    const bool valid = i < end;
+    bool valid = i < end;
+    if (RECT && valid) {
+      const unsigned y = (unsigned)i / (unsigned)w, x = (unsigned)i - y * (unsigned)w;
+      valid = (int)x >= r.x0 && (int)x < r.x1 && (int)y >= r.y0 && (int)y < r.y1;
+    }
     const int bin = valid ? (int)__ldg(v + i) * 256 + __ldg(u + i) : -1;
     const unsigned active = __ballot_sync(0xffffffffu, valid);
-    const int bin0 = __shfl_sync(0xffffffffu, bin, 0);
+    if (active == 0) continue;  // warp-uniform
+    const int leader = __ffs(active) - 1;
+    const int bin0 = __shfl_sync(0xffffffffu, bin, leader);
     if (__all_sync(0xffffffffu, !valid || bin == bin0)) {
-      if (lane == 0)
+      if (lane == leader)
         atomicAdd(&hist[bin0 >> 1], (uint32_t)__popc(active) << ((bin0 & 1) * 16));
     } else if (valid) {
       atomicAdd(&hist[bin >> 1], 1u << ((bin & 1) * 16));
@@ -82,16 +103,18 @@ vectorscope_kernel(const uint8_t* __restrict__ u, const uint8_t* __restrict__ v,
 
 __global__ void __launch_bounds__(WV_COLS * WV_WARPS)
 waveform_kernel(const uint8_t* __restrict__ data, long long plane_stride,
-                const uint8_t* __restrict__ mask, int h, int w, int* __restrict__ wv) {
+                const uint8_t* __restrict__ mask, const int* __restrict__ rect, int h, int w,
+                int* __restrict__ wv) {
   extern __shared__ int cnt[];  // [channel][bin][column-in-strip]
   const int tid = threadIdx.y * WV_COLS + threadIdx.x;
   const int nthreads = WV_COLS * WV_WARPS;
   for (int k = tid; k < WV_COUNTERS; k += nthreads) cnt[k] = 0;
+  const DynRect r = rect != nullptr ? load_dyn_rect(rect, w, h) : DynRect{0, 0, w, h};
   __syncthreads();
   const int x0 = blockIdx.x * WV_COLS;
   const int x = x0 + threadIdx.x;
-  if (x < w) {
-    for (int y = threadIdx.y; y < h; y += WV_WARPS) {
+  if (x >= r.x0 && x < r.x1) {
+    for (int y = r.y0 + threadIdx.y; y < r.y1; y += WV_WARPS) {
       const size_t i = (size_t)y * w + x;
       if (mask != nullptr && __ldg(mask + i) == 0) continue;
 #pragma unroll
@@ -113,31 +136,48 @@ waveform_kernel(const uint8_t* __restrict__ data, long long plane_stride,
 // need_vs / need_wv pick the launches: both (the counterpart of
 // pallas_stats.py::_fused_kernel, K6), the vectorscope alone (::_vs_kernel,
 // K7) or the waveform alone (::_wv_kernel, K8); a skipped output's
-// pointers may be null.  vs must be zeroed by the caller; wv is written in
-// full (an empty frame launches nothing).  Launches on `stream`, allocates nothing, returns
-// cudaGetLastError() after its launches.
+// pointers may be null.  rect: a (4,) int32 dynamic ROI in device memory,
+// or null for the whole plane.  vs must be zeroed by the caller; wv is
+// written in full (an empty frame launches nothing).  Launches on `stream`,
+// allocates nothing, returns cudaGetLastError() after its launches.
 extern "C" int ocm_scope_stats(const void* u, const void* v, const void* data,
-                               long long plane_stride, const void* mask, int h, int w,
-                               void* vs, void* wv, int need_vs, int need_wv, void* stream) {
+                               long long plane_stride, const void* mask, const void* rect,
+                               int h, int w, void* vs, void* wv, int need_vs, int need_wv,
+                               void* stream) {
+  // the shared-memory opt-in is set once per kernel and device (a bit per
+  // device), so a launch inside a CUDA graph capture makes no other call
+  static unsigned long long vs_smem_set[2] = {0, 0}, wv_smem_set = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = 1ull << (dev & 63);
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
   const long long n = (long long)h * w;
   if (need_vs && n > 0) {
-    err = cudaFuncSetAttribute(vectorscope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)VS_SMEM);
-    if (err != cudaSuccess) return (int)err;
+    const bool with_rect = rect != nullptr;
+    const auto kernel = with_rect ? vectorscope_kernel<true> : vectorscope_kernel<false>;
+    if (!(vs_smem_set[with_rect] & bit)) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)VS_SMEM);
+      if (err != cudaSuccess) return (int)err;
+      vs_smem_set[with_rect] |= bit;
+    }
     const int vs_blocks = (int)((n + VS_PIXELS_PER_BLOCK - 1) / VS_PIXELS_PER_BLOCK);
-    vectorscope_kernel<<<vs_blocks, VS_THREADS, VS_SMEM, st>>>(
-        (const uint8_t*)u, (const uint8_t*)v, n, (int*)vs);
+    kernel<<<vs_blocks, VS_THREADS, VS_SMEM, st>>>((const uint8_t*)u, (const uint8_t*)v, n, w,
+                                                   h, (const int*)rect, (int*)vs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (need_wv && w > 0) {
-    err = cudaFuncSetAttribute(waveform_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)WV_SMEM);
-    if (err != cudaSuccess) return (int)err;
+    if (!(wv_smem_set & bit)) {
+      err = cudaFuncSetAttribute(waveform_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)WV_SMEM);
+      if (err != cudaSuccess) return (int)err;
+      wv_smem_set |= bit;
+    }
     waveform_kernel<<<(w + WV_COLS - 1) / WV_COLS, dim3(WV_COLS, WV_WARPS), WV_SMEM, st>>>(
-        (const uint8_t*)data, plane_stride, (const uint8_t*)mask, h, w, (int*)wv);
+        (const uint8_t*)data, plane_stride, (const uint8_t*)mask, (const int*)rect, h, w,
+        (int*)wv);
   }
   return (int)cudaGetLastError();
 }

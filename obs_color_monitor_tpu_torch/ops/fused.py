@@ -8,7 +8,8 @@ rect, if any; then K2 runs once per component family, in the mode the
 TPU's kernels K2 or K6 (both counts), K7 (vectorscope alone) or K8
 (waveform alone) would have run.  The JAX fast path (``:135-162``) runs a
 different Pallas kernel; here it is the same K1 + K2 launches, so it needs
-no branch of its own.
+no branch of its own.  A dynamic rect (``rect_dyn``) goes to K2, which
+reads it on the device: K1 has no statistics here, so it needs none.
 
 The port has no backend switch: the input's device picks the route, as in
 every kernel wrapper (a CPU tensor runs the plain versions).
@@ -61,18 +62,25 @@ def analyze(
     frame's shape tells them apart), or (4, H, W) planar with
     ``is_planar``.  ``rect`` is the ROI (x0, y0, x1, y1) in scaled
     coordinates.  ``planes`` always holds the scaled (cropped) frame.
+
+    ``rect_dyn`` is a dynamic ROI in scaled coordinates, a (4,) integer
+    tensor on the frame's device (exclusive with ``rect``): the statistics
+    count only in-rect pixels, equal to the static crop's, the waveforms
+    keep the full width with the columns outside the rect zero, and
+    ``planes``/``yuv_planes`` stay the full capture.  The rect is never
+    read on the host, so a new rect changes no launch shape
+    (``analyze(rect_dyn=)``, ``ops/fused.py:107-113, 172-188``).
     """
-    if rect_dyn is not None:
-        raise NotImplementedError(
-            "analyze(rect_dyn=...) needs the dynamic rect in K1: ROADMAP.md "
-            "Queue 1, 'the dynamic ROI'"
-        )
+    if rect is not None and rect_dyn is not None:
+        raise ValueError("rect and rect_dyn are mutually exclusive")
     # an (H, W, 4) u8 frame goes to K1 as its packed view, without a copy
     x = frame if is_planar else packed_view(frame)
     ds, yuv, _, _, _ = frame_pass(x, packed=not is_planar, cs=int(cs), scale=int(scale),
                                   with_overlays=False)
     rgb_fam = need_wv_rgb or need_hi_rgb
     yuv_fam = need_wv_yuv or need_hi_yuv
+    if rect_dyn is not None:
+        rect_dyn = torch.as_tensor(rect_dyn, dtype=torch.int32, device=ds.device)
     if rect is not None:
         x0, y0, x1, y1 = rect
         ds = ds[:, y0:y1, x0:x1].contiguous()
@@ -84,11 +92,13 @@ def analyze(
     for fam, on in ((False, rgb_fam), (True, yuv_fam)):
         if not on:
             continue
-        vs_i32, counts[fam] = vs_wv_counts(*stats_inputs(ds, yuv, fam), need_vs=vs_pending)
+        vs_i32, counts[fam] = vs_wv_counts(*stats_inputs(ds, yuv, fam), need_vs=vs_pending,
+                                           rect=rect_dyn)
         if vs_pending:
             vs, vs_pending = saturate_u8(vs_i32), False
     if vs_pending:
-        vs = saturate_u8(vs_wv_counts(yuv[1], yuv[2], None, None, need_wv=False)[0])
+        vs = saturate_u8(vs_wv_counts(yuv[1], yuv[2], None, None, need_wv=False,
+                                      rect=rect_dyn)[0])
 
     def wv(fam, need):
         return saturate_u8(counts[fam]) if need else None

@@ -17,7 +17,7 @@ import torch
 
 from .. import _kernels
 from . import overlays as ov
-from .convert import interleave
+from .convert import clamp_rect, interleave, rgba_to_packed
 from .pipeline import _overlay_params
 
 ALL = (True, True, True)
@@ -26,18 +26,15 @@ ALL = (True, True, True)
 def packed_from_planes(planes: torch.Tensor) -> torch.Tensor:
     """(4, H, W) u8 -> the (H, W) int32 packed view of its RGBA bytes
     (byte 0 = R), as the kernel's ``packed_out`` composes it."""
-    return interleave(planes).contiguous().view(torch.int32)[..., 0]
+    return rgba_to_packed(interleave(planes))
 
 
-def _rect_tm(tm: float, rect, w: int, h: int):
-    """The clipped rect (the whole frame without one) and the zebra clock
-    with its phase anchored at the rect origin: ``tm - (x0 + y0)`` in
-    float32, as the JAX kernel and dynamic dock compute it."""
-    tm32 = np.float32(tm)
-    if rect is None:
-        return (0, 0, w, h), tm32
-    r = ov.clip_rect(rect, w, h)
-    return r, np.float32(tm32 - np.float32(r[0] + r[1]))
+def _tm_rect(tm: float, rect_c: torch.Tensor | None, device) -> torch.Tensor:
+    """The zebra clock with its phase anchored at the clamped rect's origin:
+    ``tm - (x0 + y0)``, one float32 subtraction, as the JAX kernel and
+    dynamic dock compute it (``pallas_overlays.py:81``)."""
+    tm32 = torch.tensor(np.float32(tm), device=device)
+    return tm32 if rect_c is None else tm32 - (rect_c[0] + rect_c[1]).to(torch.float32)
 
 
 def fused_overlays_reference(
@@ -58,15 +55,14 @@ def fused_overlays_reference(
     u8, or (H, W) int32 packed RGBA with ``packed_out``; an output whose
     ``outputs`` flag is off is None."""
     h, w = planes.shape[-2], planes.shape[-1]
-    r, tm32 = _rect_tm(tm, rect, w, h)
+    rect_c = None if rect is None else clamp_rect(rect, w, h, planes.device)
     zb = fc = fp = None
     if outputs[0]:
-        zb = ov.zebra_planes(planes, th_low, th_high, float(tm32), zb_cs)
+        zb = ov.zebra_planes(planes, th_low, th_high, _tm_rect(tm, rect_c, planes.device), zb_cs)
     if outputs[1]:
         fc = ov.falsecolor_planes(planes, fc_cs)
     if outputs[2]:
-        fp = ov.focus_peaking_planes(planes, peak_th, peak_rgba,
-                                     rect=None if rect is None else r)
+        fp = ov.focus_peaking_planes(planes, peak_th, peak_rgba, rect=rect_c)
     if packed_out:
         return tuple(None if x is None else packed_from_planes(x) for x in (zb, fc, fp))
     return zb, fc, fp
@@ -89,9 +85,14 @@ def fused_overlays_planes(
     """K3: the three overlays of a planar (4, H, W) u8 frame in one pass,
     each with its own colorspace (``zb_cs``, ``fc_cs``).
 
-    ``rect`` (x0, y0, x1, y1), host integers clipped into the frame: pixels
-    inside it equal the overlays of the cropped frame (zebra phase anchored
-    at the rect origin, focus-peaking clamps at its borders).
+    ``rect`` (x0, y0, x1, y1): pixels inside it equal the overlays of the
+    cropped frame (zebra phase anchored at the rect origin, focus-peaking
+    clamps at its borders); outside it the plain
+    :func:`overlays.focus_peaking_planes` rule holds, on both routes.  The
+    kernel reads the rect from device memory and clamps it
+    (:func:`convert.clamp_rect`), so a (4,) int32 tensor on the planes'
+    device, a dynamic ROI, changes no launch; host integers are copied
+    there first.
     ``packed_out`` returns (H, W) int32 packed RGBA instead of planes;
     ``outputs`` switches each overlay on or off (None in its place).  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel.
@@ -110,7 +111,14 @@ def fused_overlays_planes(
     if not any(outputs):
         raise ValueError("fused_overlays_planes: no output enabled")
     h, w = planes.shape[1], planes.shape[2]
-    (x0, y0, x1, y1), tm32 = _rect_tm(tm, rect, w, h)
+    if isinstance(rect, torch.Tensor):
+        if rect.dtype != torch.int32 or rect.shape != (4,) or not rect.is_contiguous():
+            raise ValueError(f"rect must be a contiguous (4,) int32 tensor, got "
+                             f"{tuple(rect.shape)} {rect.dtype}")
+        if rect.device != planes.device:
+            raise ValueError(f"rect on {rect.device}, the planes on {planes.device}")
+    elif rect is not None:
+        rect = clamp_rect(rect, w, h, planes.device)
     shape, dtype = ((h, w), torch.int32) if packed_out else ((4, h, w), torch.uint8)
     outs = [torch.empty(shape, dtype=dtype, device=planes.device) if on else None
             for on in outputs]
@@ -120,12 +128,17 @@ def fused_overlays_planes(
     lib = _kernels.library()
     with torch.cuda.device(planes.device):
         rc = lib.ocm_fused_overlays(
-            ctypes.addressof(op), planes.data_ptr(), float(tm32), x0, y0, x1, y1,
-            int(packed_out), *(ptr(t) for t in outs), _kernels.stream_handle(planes.device),
+            ctypes.addressof(op), planes.data_ptr(), float(np.float32(tm)), ptr(rect),
+            int(packed_out), *(ptr(t) for t in outs),
+            _kernels.stream_handle(planes.device),
         )
     fused_overlays_planes.launches += 1
+    if rect is not None:
+        fused_overlays_planes.launches_rect += 1
     _kernels.check(rc, "fused_overlays")
     return tuple(outs)
 
 
+# every launch; of which with a rect
 fused_overlays_planes.launches = 0
+fused_overlays_planes.launches_rect = 0

@@ -19,7 +19,7 @@ from ..golden.reference import (
     falsecolor_band_colors_u8,
     luma_threshold_fixed,
 )
-from .convert import luma_planes
+from .convert import clamp_rect, luma_planes
 
 BAND_COLORS = falsecolor_band_colors_u8()  # (12, 4) u8
 BAND_THRESH = tuple(luma_threshold_fixed(t) for t, _ in FALSECOLOR_BANDS[:-1])  # (11,)
@@ -31,20 +31,24 @@ def zebra_planes(
     """Diagonal stripes where th_low <= luma <= th_high and
     ``floor(x + y + 1 + tm) mod 6 < 3``; striped pixels become opaque black
     (``overlays.zebra_planes``).  The phase is float32 (``x + y + 1`` is
-    exact there) with the floored modulo of JAX's ``%``."""
+    exact there) with the floored modulo of JAX's ``%``.  ``tm`` is a
+    Python float or a 0-d float32 tensor on the planes' device."""
     luma = luma_planes(planes, cs)
     h, w = planes.shape[-2], planes.shape[-1]
     yy = torch.arange(h, dtype=torch.float32, device=planes.device)[:, None]
     xx = torch.arange(w, dtype=torch.float32, device=planes.device)[None, :]
-    tm32 = torch.tensor(np.float32(tm), device=planes.device)
+    if isinstance(tm, torch.Tensor):
+        tm32 = tm.to(torch.float32)
+    else:
+        tm32 = torch.tensor(np.float32(tm), device=planes.device)
     phase = torch.floor(xx + yy + 1.0 + tm32).to(torch.int32).remainder(6)
     stripe = (
         (luma >= luma_threshold_fixed(th_low))
         & (luma <= luma_threshold_fixed(th_high))
         & (phase < 3)
     )
-    black = torch.tensor([0, 0, 0, 255], dtype=torch.uint8, device=planes.device)
-    return torch.where(stripe, black.view(4, 1, 1), planes)
+    rgb = torch.where(stripe, 0, planes[..., :3, :, :])
+    return torch.cat([rgb, torch.where(stripe, 255, planes[..., 3:, :, :])], dim=-3)
 
 
 def falsecolor_planes(planes: torch.Tensor, cs: int) -> torch.Tensor:
@@ -72,14 +76,6 @@ def falsecolor_lut_planes(
     return lut[i].movedim(-1, -3).contiguous()
 
 
-def clip_rect(rect, w: int, h: int) -> tuple[int, int, int, int]:
-    """An (x0, y0, x1, y1) rect clipped into a (h, w) frame as the JAX
-    overlays clip it: 0 <= x0 <= x1 <= w, 0 <= y0 <= y1 <= h."""
-    x0 = min(max(int(rect[0]), 0), w)
-    y0 = min(max(int(rect[1]), 0), h)
-    return x0, y0, min(max(int(rect[2]), x0), w), min(max(int(rect[3]), y0), h)
-
-
 def focus_peaking_planes(
     planes: torch.Tensor, th_fixed: int, peaking_color_u8, rect=None
 ) -> torch.Tensor:
@@ -88,11 +84,12 @@ def focus_peaking_planes(
     compared with the integer ``th_fixed``; peaks take the peaking colour
     (``overlays.focus_peaking_planes``).
 
-    ``rect`` (x0, y0, x1, y1), host integers: the edge clamps move to the
-    rect borders, so pixels inside it equal the focus peaking of the
-    cropped frame.  Outside it the JAX function's rule holds as well: the
-    right/lower difference is cut at x1-1/y1-1 and the left/upper one at
-    x0/y0."""
+    ``rect`` (x0, y0, x1, y1), host integers or a (4,) integer tensor (a
+    dynamic ROI, clamped on its device by :func:`convert.clamp_rect`): the
+    edge clamps move to the rect borders, so pixels inside it equal the
+    focus peaking of the cropped frame.  Outside it the JAX function's rule
+    holds as well: the right/lower difference is cut at x1-1/y1-1 and the
+    left/upper one at x0/y0."""
     rgb = planes[..., :3, :, :].to(torch.int32)
     h, w = rgb.shape[-2], rgb.shape[-1]
     zeros = lambda: torch.zeros((h, w), dtype=torch.int32, device=planes.device)
@@ -100,15 +97,19 @@ def focus_peaking_planes(
     dxf[:, :-1] = (rgb[..., :, 1:] - rgb[..., :, :-1]).abs().sum(dim=-3)
     dyf[:-1, :] = (rgb[..., 1:, :] - rgb[..., :-1, :]).abs().sum(dim=-3)
     if rect is not None:
-        x0, y0, x1, y1 = clip_rect(rect, w, h)
-        dxf[:, max(x1 - 1, 0):] = 0
-        dyf[max(y1 - 1, 0):, :] = 0
+        x0, y0, x1, y1 = clamp_rect(rect, w, h, planes.device)
+        ci = torch.arange(w, dtype=torch.int32, device=planes.device)[None, :]
+        ri = torch.arange(h, dtype=torch.int32, device=planes.device)[:, None]
+        dxf = torch.where(ci >= x1 - 1, 0, dxf)
+        dyf = torch.where(ri >= y1 - 1, 0, dyf)
     sxr, syr = zeros(), zeros()  # the left / upper neighbour's difference
     sxr[:, 1:] = dxf[:, :-1]
     syr[1:, :] = dyf[:-1, :]
     if rect is not None:
-        sxr[:, : x0 + 1] = 0
-        syr[: y0 + 1, :] = 0
+        sxr = torch.where(ci <= x0, 0, sxr)
+        syr = torch.where(ri <= y0, 0, syr)
     acc = dxf + sxr + dyf + syr
-    color = torch.as_tensor(np.asarray(peaking_color_u8, np.uint8), device=planes.device)
-    return torch.where(acc >= int(th_fixed), color.view(4, 1, 1), planes)
+    peak = acc >= int(th_fixed)
+    color = [int(c) for c in np.asarray(peaking_color_u8, np.uint8)]
+    return torch.stack([torch.where(peak, color[c], planes[..., c, :, :]) for c in range(4)],
+                       dim=-3)

@@ -11,7 +11,9 @@ here, not its layout:
   frame and writes the three overlays (full-res planar), the scaled planes
   at any integer scale, and the Q12 YUV planes of the scaled frame;
 * ``frame_pipeline`` feeds those to K2 (``ops/scope_stats.py``) and returns
-  the JAX function's six outputs with its shapes.
+  the JAX function's six outputs with its shapes;
+* ``fused_ingest_stats_scale1/2``, the entry points of the TPU's kernel K9
+  (``pallas_stats.py:419``), are K1's scale launch and K2 on a planar frame.
 
 The input is the packed (H, W) int32 view of an RGBA frame or a planar
 (4, H, W) u8 frame.
@@ -207,3 +209,52 @@ def frame_pipeline_reference(frame, tm=0.0, *, yuv_data: bool = False, **kw):
     """Plain version of :func:`frame_pipeline` on any device."""
     kw.setdefault("packed", False)
     return _pipeline(frame_pass_reference, vs_wv_counts_reference, frame, tm, yuv_data, kw)
+
+
+def _ingest(pass_fn, count_fn, planes, cs, scale, yuv_data):
+    if planes.ndim != 3 or planes.shape[0] != 4 or planes.dtype != torch.uint8:
+        raise ValueError(f"planes must be (4, H, W) u8, got {tuple(planes.shape)} {planes.dtype}")
+    kw = dict(packed=False, cs=int(cs), scale=scale, with_overlays=False)
+    vs, wv, ds, *_ = _pipeline(pass_fn, count_fn, planes, 0.0, yuv_data, kw)
+    return vs, wv, ds
+
+
+def fused_ingest_stats(planes: torch.Tensor, cs: int, scale: int, yuv_data: bool = False):
+    """The fused ingest + statistics of a planar (4, H4, W4) u8 frame at
+    ``scale`` 1 or 2: (vs (256, 256) int32, wv (3, 256, W) int32, ds
+    (4, H, W) u8), unsaturated, with H = H4 // scale and W = W4 // scale
+    (odd H4 or W4 crop to ``scale * H`` x ``scale * W``, as JAX's do).
+    ``yuv_data`` picks the waveform's source: R, G, B skipping alpha-0
+    pixels, or Y, U, V never skipping.
+
+    Counterpart of ``pallas_stats._fused_ingest_stats`` (``:500``, kernel
+    K9: ``_ingest_kernel`` ``:419`` launched at ``:532``, then
+    ``_fused_kernel`` at ``:564``).  ``_ingest_kernel`` computes the scaled
+    planes and their YUV per output pixel, which is what K1's scale launch
+    writes, and ``_fused_kernel`` counts them, which is K2; so on a CUDA
+    tensor this runs as K1 without overlays (one launch) and K2 (both
+    counts), each booked by its own wrapper's launch count.  A CPU tensor
+    runs the plain versions."""
+    if scale not in (1, 2):
+        raise ValueError(f"fused_ingest_stats: scale must be 1 or 2, got {scale}")
+    return _ingest(frame_pass, vs_wv_counts, planes, cs, scale, yuv_data)
+
+
+def fused_ingest_stats_reference(planes, cs: int, scale: int, yuv_data: bool = False):
+    """Plain version of :func:`fused_ingest_stats` on any device."""
+    return _ingest(frame_pass_reference, vs_wv_counts_reference, planes, cs, scale, yuv_data)
+
+
+def fused_ingest_stats_scale1(planes: torch.Tensor, cs: int, yuv_data: bool = False):
+    """(4, H, W) u8 planar -> (vs_i32 (256, 256), wv_i32 (3, 256, W)), the
+    scale-1 statistics (``pallas_stats.fused_ingest_stats_scale1``
+    ``:597``)."""
+    vs, wv, _ = fused_ingest_stats(planes, cs, 1, yuv_data)
+    return vs, wv
+
+
+def fused_ingest_stats_scale2(planes: torch.Tensor, cs: int, yuv_data: bool = False):
+    """Full-resolution (4, H4, W4) u8 planar -> (vs_i32 (256, 256), wv_i32
+    (3, 256, W), ds (4, H, W)) with H = H4 // 2 and W = W4 // 2
+    (``pallas_stats.fused_ingest_stats_scale2`` ``:614``)."""
+    return fused_ingest_stats(planes, cs, 2, yuv_data)

@@ -10,6 +10,8 @@ reference's BGRA staging order); the spec is ``golden/render.py``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -59,6 +61,13 @@ def _disp_order(yuv_mode: bool) -> tuple[int, int, int]:
     return DISP_YUV if yuv_mode else DISP_RGB
 
 
+def _reorder(x: torch.Tensor, yuv_mode: bool) -> torch.Tensor:
+    """The channels of ``x`` in display order.  Stacked from the channels
+    themselves: an index list would cross from the host on every call (and
+    a CUDA graph cannot capture that copy)."""
+    return torch.stack([x[i] for i in _disp_order(yuv_mode)])
+
+
 def _bands(n_components: int) -> tuple[int, ...]:
     return (0, 1, 2) if n_components == 3 else (0, 2)
 
@@ -74,8 +83,7 @@ def render_waveform(
     (``render.render_waveform``): OVERLAY maps each display channel to
     ``min(count * intensity, 255)``; STACK/PARADE tile Q12-tinted bands
     vertically/horizontally (n = 2 shows bands 0 and 2; n = 1 is OVERLAY)."""
-    order = list(_disp_order(yuv_mode))
-    vals = (counts[order].flip(1).to(torch.int32) * int(intensity)).clamp(max=255)
+    vals = (_reorder(counts, yuv_mode).flip(1).to(torch.int32) * int(intensity)).clamp(max=255)
     if n_components <= 1 or DisplayMode(display) == DisplayMode.OVERLAY:
         return _compose_rgba(vals[0], vals[1], vals[2])
     dim = 0 if DisplayMode(display) == DisplayMode.STACK else 1
@@ -103,10 +111,9 @@ def render_histogram(
     """levels (3, 256) f32 + hi_max (3,) f32 -> RGBA bars
     (``render.render_histogram``): a pixel is filled where
     ``level >= (1 - (row + 0.5) / H) * hi_max``, all in float32."""
-    order = list(_disp_order(yuv_mode))
     H = int(level_height)
-    lv = levels[order].to(torch.float32)
-    hm = hi_max[order].to(torch.float32)
+    lv = _reorder(levels, yuv_mode).to(torch.float32)
+    hm = _reorder(hi_max, yuv_mode).to(torch.float32)
     rows = torch.arange(H, dtype=torch.float32, device=levels.device)
     thr = (1.0 - (rows + 0.5) / float(H))[:, None]  # (H, 1)
     fill = lv[:, None, :] >= thr[None] * hm[:, None, None]  # (3, H, 256)
@@ -154,8 +161,14 @@ def zoom_center(image: torch.Tensor, zoom: float) -> torch.Tensor:
     index map."""
     if zoom <= 1.01:
         return image
-    n = image.shape[0]
+    idx = _zoom_index(image.shape[0], float(zoom), image.device)
+    return image.index_select(0, idx).index_select(1, idx)
+
+
+@functools.lru_cache(maxsize=64)
+def _zoom_index(n: int, zoom: float, device: torch.device) -> torch.Tensor:
+    """The source row/column of each of ``n`` zoomed samples, on ``device``
+    (built once per zoom: no host copy per frame)."""
     ofst = (n / 2 - 0.5) * (1.0 - zoom)
     src = np.clip(np.floor((np.arange(n) + 0.5 - ofst) / zoom).astype(np.int64), 0, n - 1)
-    idx = torch.as_tensor(src, device=image.device)
-    return image.index_select(0, idx).index_select(1, idx)
+    return torch.as_tensor(src, device=device)

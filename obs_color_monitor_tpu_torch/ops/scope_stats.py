@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from .convert import clamp_rect, rect_mask
 from .stats import VS_SIZE, WV_SIZE, vectorscope_counts_uv, waveform_counts_i32
 
 
@@ -33,11 +34,20 @@ def vs_wv_counts_reference(
     *,
     need_vs: bool = True,
     need_wv: bool = True,
+    rect: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Plain version of K2: ((256, 256) int32 counts[v, u] over every pixel,
     (3, 256, w) int32 per-column waveform of ``data`` skipping pixels whose
-    ``mask`` is 0); an output not needed is None."""
-    vs = vectorscope_counts_uv(u, v) if need_vs else None
+    ``mask`` is 0); an output not needed is None.  With a dynamic ``rect``
+    only the pixels inside it count, masked by the clamped rect."""
+    ref = u if need_vs else data
+    inr = None
+    if rect is not None:
+        h, w = ref.shape[-2], ref.shape[-1]
+        inr = rect_mask(clamp_rect(rect, w, h, ref.device), h, w)
+        if need_wv:
+            mask = inr if mask is None else (mask != 0) & inr
+    vs = vectorscope_counts_uv(u, v, inr) if need_vs else None
     wv = waveform_counts_i32(data, mask) if need_wv else None
     return vs, wv
 
@@ -56,6 +66,7 @@ def vs_wv_counts(
     *,
     need_vs: bool = True,
     need_wv: bool = True,
+    rect: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Vectorscope and waveform counts of planar u8 inputs.
 
@@ -66,14 +77,22 @@ def vs_wv_counts(
     contiguous first.  With one of the flags off, only the other kernel
     launches and its output is None: the counterparts of the TPU's
     standalone vectorscope (K7) and waveform (K8) kernels; with both, of its
-    fused kernel (K6) as well as K2.  A CPU tensor runs the plain version; a
-    CUDA tensor launches K2.
+    fused kernel (K6) as well as K2.
+
+    ``rect`` is a dynamic ROI (x0, y0, x1, y1), a (4,) int32 tensor on the
+    planes' device, or None for the whole plane: the kernels read it from
+    device memory and clamp it (:func:`convert.clamp_rect`), the vectorscope
+    counts only in-rect pixels, and the waveform keeps its (3, 256, w)
+    shape with the columns outside the rect zero.  The launches' shapes
+    depend on (h, w) alone, never on the rect.  A CPU tensor runs the plain
+    version; a CUDA tensor launches K2.
     """
     if not (need_vs or need_wv):
         raise ValueError("vs_wv_counts: nothing to count")
     ref = u if need_vs else data
     if ref.device.type == "cpu":
-        return vs_wv_counts_reference(u, v, data, mask, need_vs=need_vs, need_wv=need_wv)
+        return vs_wv_counts_reference(u, v, data, mask, need_vs=need_vs, need_wv=need_wv,
+                                      rect=rect)
     if ref.device.type != "cuda":
         raise ValueError(f"vs_wv_counts: unsupported device {ref.device}")
     h, w = ref.shape[-2:]
@@ -93,6 +112,13 @@ def vs_wv_counts(
         if mask is not None:
             _check_plane("mask", mask, h, w)
             tensors.append(mask)
+    if rect is not None:
+        if rect.dtype != torch.int32 or rect.shape != (4,) or not rect.is_contiguous():
+            raise ValueError(f"rect must be a contiguous (4,) int32 tensor, got "
+                             f"{tuple(rect.shape)} {rect.dtype}")
+        if h * w >= 1 << 31:
+            raise ValueError("vs_wv_counts: a rect needs fewer than 2**31 pixels")
+        tensors.append(rect)
     if any(t.device != ref.device for t in tensors):
         raise ValueError("vs_wv_counts: inputs on different devices")
     dev = ref.device
@@ -104,10 +130,12 @@ def vs_wv_counts(
         rc = lib.ocm_scope_stats(
             ptr(u) if need_vs else None, ptr(v) if need_vs else None,
             ptr(data) if need_wv else None, data.stride(0) if need_wv else 0,
-            ptr(mask) if need_wv else None, h, w, ptr(vs), ptr(wv),
+            ptr(mask) if need_wv else None, ptr(rect), h, w, ptr(vs), ptr(wv),
             int(need_vs), int(need_wv), _kernels.stream_handle(dev),
         )
     vs_wv_counts.launches += 1
+    if rect is not None:
+        vs_wv_counts.launches_rect += 1
     if not need_wv:
         vs_wv_counts.launches_vs_only += 1
     elif not need_vs:
@@ -116,7 +144,9 @@ def vs_wv_counts(
     return vs, wv
 
 
-# every launch; of which with the vectorscope alone / the waveform alone
+# every launch; of which with the vectorscope alone / the waveform alone /
+# a dynamic rect
 vs_wv_counts.launches = 0
 vs_wv_counts.launches_vs_only = 0
 vs_wv_counts.launches_wv_only = 0
+vs_wv_counts.launches_rect = 0

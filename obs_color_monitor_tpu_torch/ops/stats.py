@@ -13,7 +13,6 @@ pixel with mask 0 is skipped (alpha 0 in the RGB family).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 VS_SIZE = 256
@@ -21,11 +20,17 @@ WV_SIZE = 256
 HI_SIZE = 256
 
 
-def vectorscope_counts_uv(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def vectorscope_counts_uv(
+    u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
     """(H, W) U and V planes -> (256, 256) int32 counts[v, u]; every pixel
-    counts (no alpha skip)."""
+    counts (no alpha skip), or only where ``mask`` is set (a dynamic rect:
+    the others go to a spare bin that is dropped)."""
+    n = VS_SIZE * VS_SIZE
     idx = v.reshape(-1).to(torch.int64) * VS_SIZE + u.reshape(-1).to(torch.int64)
-    counts = torch.bincount(idx, minlength=VS_SIZE * VS_SIZE)
+    if mask is not None:
+        idx = torch.where(mask.reshape(-1), idx, n)
+    counts = torch.bincount(idx, minlength=n + 1)[:n]
     return counts.view(VS_SIZE, VS_SIZE).to(torch.int32)
 
 
@@ -76,22 +81,26 @@ def saturate_u8(counts: torch.Tensor) -> torch.Tensor:
 def histogram_hi_max(
     counts: torch.Tensor,
     sel: tuple[bool, bool, bool],
-    n_pixels: int,
+    n_pixels: int | torch.Tensor,
     level_fixed: int,
     level_ratio_permille: int,
 ) -> torch.Tensor:
     """Normalisation ceiling, (3,) int64 (``stats.histogram_hi_max``, which
     returns uint32).  Ratio mode is ``floor(n * permille / 1000)`` in int64:
-    the u32 product overflows above ~4.3 M pixels."""
+    the u32 product overflows above ~4.3 M pixels.  ``n_pixels`` is a host
+    integer or a 0-d integer tensor on the counts' device (a dynamic rect's
+    pixel count, never read on the host)."""
     dev = counts.device
     if level_fixed > 0:
         return torch.full((3,), max(1, int(level_fixed)), dtype=torch.int64, device=dev)
     if level_ratio_permille > 0:
+        if isinstance(n_pixels, torch.Tensor):
+            v = (n_pixels.to(torch.int64) * int(level_ratio_permille)) // 1000
+            return v.clamp(min=1).reshape(1).expand(3).contiguous()
         v = max(1, (int(n_pixels) * int(level_ratio_permille)) // 1000)
         return torch.full((3,), v, dtype=torch.int64, device=dev)
     hi = counts.to(torch.int64).amax(dim=1).clamp(min=1)
-    sel_t = torch.tensor(sel, dtype=torch.bool, device=dev)
-    return torch.where(sel_t, hi, 1)
+    return torch.stack([hi[c] if sel[c] else torch.ones_like(hi[c]) for c in range(3)])
 
 
 def histogram_levels(
@@ -103,8 +112,7 @@ def histogram_levels(
     if logscale:
         s = 1.0 / torch.log(hi_max.to(torch.float32) + 1.0)
         lv = torch.where(counts > 0, torch.log(cf + 1.0) * s[:, None], 0.0)
-        sel_t = torch.tensor(sel, dtype=torch.bool, device=counts.device)[:, None]
-        lv = torch.where(sel_t, lv, 0.0)
+        lv = torch.stack([lv[c] if sel[c] else torch.zeros_like(lv[c]) for c in range(3)])
         return lv, torch.ones((3,), dtype=torch.float32, device=counts.device)
     return cf, hi_max.to(torch.float32)
 
@@ -124,6 +132,7 @@ def select_planes(
 
 
 def apply_channel_select(counts: torch.Tensor, sel: tuple[bool, bool, bool]) -> torch.Tensor:
-    """Zero the disabled channels (``stats.apply_channel_select``)."""
-    keep = np.asarray(sel, dtype=bool).reshape((3,) + (1,) * (counts.ndim - 1))
-    return counts * torch.as_tensor(keep, device=counts.device).to(counts.dtype)
+    """Zero the disabled channels (``stats.apply_channel_select``).  Built
+    from the channels themselves, so no host data crosses to the device (a
+    CUDA graph can capture it)."""
+    return torch.stack([counts[c] if sel[c] else torch.zeros_like(counts[c]) for c in range(3)])

@@ -117,8 +117,16 @@ def test_packed_rgba_frame_equals_rgba_frame():
 
 
 def test_dynamic_roi_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_dock_step(H, W, dynamic_roi=True, device="cpu")
+    # The name dates from when the dynamic ROI was refused with its ROADMAP
+    # item; it no longer describes the test.  The test now checks that
+    # dynamic_roi=True builds a (frame, tm, rect) step and keeps JAX's
+    # argument checks (tests/test_torch_dynamic_roi.py covers the step).
+    step = make_dock_step(H, W, dynamic_roi=True, device="cpu")
+    assert step.dims["zebra"] == (0, 0)
+    with pytest.raises(ValueError):
+        make_dock_step(H, W, dynamic_roi=True, roi_rect=(0, 0, 10, 10), device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_dock_step(H, W, dynamic_roi=True, overlays_on_capture=False, device="cpu")
 
 
 def test_dock_step_refuses_a_frame_on_another_device_or_shape():

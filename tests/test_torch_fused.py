@@ -77,9 +77,9 @@ def test_analyze_picks_the_k2_mode(flags, monkeypatch):
     calls = []
     real = tfused.vs_wv_counts
 
-    def spy(*args, need_vs=True, need_wv=True):
+    def spy(*args, need_vs=True, need_wv=True, rect=None):
         calls.append((need_vs, need_wv))
-        return real(*args, need_vs=need_vs, need_wv=need_wv)
+        return real(*args, need_vs=need_vs, need_wv=need_wv, rect=rect)
 
     monkeypatch.setattr(tfused, "vs_wv_counts", spy)
     rect = (2, 2, 20, 15) if flags == "k6_both" else None
@@ -88,6 +88,14 @@ def test_analyze_picks_the_k2_mode(flags, monkeypatch):
 
 
 def test_dynamic_rect_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.analyze(torch.from_numpy(_frame(0)), cs=2, need_vs=True,
+    # The name dates from when rect_dyn was refused with its ROADMAP item;
+    # it no longer describes the test.  The test now checks that rect_dyn
+    # counts the in-rect pixels of the full capture and excludes a static
+    # rect (tests/test_torch_dynamic_roi.py covers the rest).
+    f = torch.from_numpy(_frame(0))
+    got = tfused.analyze(f, cs=2, need_vs=True, rect_dyn=torch.tensor([0, 0, 4, 4]))
+    assert int(got.vs_counts.to(torch.int64).sum()) == 16
+    assert tuple(got.planes.shape) == (4, H, W)
+    with pytest.raises(ValueError):
+        tfused.analyze(f, cs=2, need_vs=True, rect=(0, 0, 4, 4),
                        rect_dyn=torch.tensor([0, 0, 4, 4]))

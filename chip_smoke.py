@@ -21,9 +21,12 @@ any failure raises and the exit code is non-zero:
    waveform alone (K8) and both (K6) on cropped planes; K2 in its three
    modes and K3 with a dynamic rect (a (4,) int32 tensor on the card) at
    1920x1080 and odd shapes, over rects inside, full, one pixel, empty,
-   touching each edge, oversized and reversed; K9 (the fused ingest
-   statistics) at scale 2 on 3840x2160 and scale 1 on 1920x1080 and odd
-   shapes, and one 270x480 case against the golden model;
+   touching each edge, oversized and reversed; K2 on planes whose starts
+   are not 16-byte aligned (slices of one buffer), on a crop whose width is
+   not a multiple of 16 and on frames with fewer rows than a waveform
+   cluster has blocks; K9 (the fused ingest statistics) at scale 2 on
+   3840x2160 and scale 1 on 1920x1080 and odd shapes, and one 270x480 case
+   against the golden model;
 4. the main paths, each on the card and on the CPU, every output field
    equal, the launch counters set to 0 just before each path and read just
    after it (every kernel of the path must have launched):
@@ -39,13 +42,18 @@ any failure raises and the exit code is non-zero:
    rect tensor overwritten in place; the streaming ``models.Dock`` on 6
    4K NV12 frames with a move-drag on its ROI band, against a CPU Dock fed
    the same frames and mouse events; one 270x480 frame against the golden
-   model;
+   model.  On every path K1 and K2 must also have taken their fast forms
+   (16-byte loads, cp.async stages) on every call (the ``K1 vec`` / ``K2
+   vec`` counts);
 5. timing with CUDA events (warm-up, then the median of 25 runs of 10
    back-to-back calls): the 4K full step, the 4K NV12 dock step, its
    dynamic-ROI form eagerly and as a CUDA graph replay, per frame; each
    kernel beside its plain version and, where one exists, the one PyTorch
-   call that computes the same function (K2 and K3 also in rect mode); then
-   each kernel's device time alone, from torch.profiler;
+   call that computes the same function (K2 and K3 also in rect mode, K2
+   also on a flat frame, K1 as its overlay+scale pass and its scale-only
+   pass, each with its bound); then each kernel's device time alone, from
+   torch.profiler: the sum of its kernels' durations and its span (first
+   start to last end: K2's two counts overlap);
 6. a torch.profiler window over 10 full steps, 10 NV12 and 10 P010 dock
    steps: device time per kernel and the device's busy share of the
    window.
@@ -57,6 +65,7 @@ last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -289,6 +298,45 @@ def phase_stats_modes(device, err: dict) -> None:
                             ss.vs_wv_counts_reference(*inputs, **kw), err)
 
 
+def alignment_cases(device):
+    """K2 inputs that are not 16-byte aligned or are small: (case, (u, v,
+    data, mask)).  Slices of one buffer at offsets 1, 3, 5, 8 and 16 (as
+    stats_inputs slices yuv[1] and yuv[2] out of one allocation); a
+    1441-wide crop of a 1080-row capture; and frames with fewer rows than a
+    waveform cluster has blocks."""
+    import torch
+
+    from obs_color_monitor_tpu_torch.ops import pipeline as pl
+
+    rng = np.random.default_rng(31)
+    h, w = 64, 96
+    buf = torch.from_numpy(rng.integers(0, 256, 5 * h * w + 64, np.uint8)).to(device)
+    for off in (1, 3, 5, 8, 16):
+        yield f"slices at +{off}", (
+            buf[off + h * w:off + 2 * h * w].view(h, w),
+            buf[off + 2 * h * w + 5:off + 3 * h * w + 5].view(h, w),
+            buf[off:off + 3 * h * w].view(3, h, w),
+            buf[off + 3 * h * w + 2:off + 4 * h * w + 2].view(h, w))
+    for ch, cw in ((1080, 1441), (1, 1), (3, 2000), (5, 40), (7, 16)):
+        x = as_input(make_frame(ch, cw, "random", ch + cw), True, device)
+        ds, yuv, *_ = pl.frame_pass_reference(x, packed=True, cs=2, scale=1,
+                                              with_overlays=False)
+        for fam in (False, True):
+            yield f"{ch}x{cw} {'yuv' if fam else 'rgb'}", pl.stats_inputs(ds, yuv, fam)
+
+
+def phase_stats_alignment(device, err: dict) -> None:
+    """K2 in each mode vs its plain version on :func:`alignment_cases`."""
+    from obs_color_monitor_tpu_torch.ops import scope_stats as ss
+
+    for case, inputs in alignment_cases(device):
+        for kernel, need_vs, need_wv in (("K2", True, True), ("K7", True, False),
+                                         ("K8", False, True)):
+            kw = dict(need_vs=need_vs, need_wv=need_wv)
+            check_equal(kernel, case, ss.vs_wv_counts(*inputs, **kw),
+                        ss.vs_wv_counts_reference(*inputs, **kw), err)
+
+
 def rect_cases(h: int, w: int, roi=None) -> list:
     """Dynamic rects on an (h, w) plane: inside (the ROI), the full plane,
     one pixel, empty, touching each edge, oversized and negative, reversed."""
@@ -377,6 +425,8 @@ def read_counts() -> dict:
     vs = scope_stats.vs_wv_counts
     return {
         "K1": pipeline.frame_pass.launches,
+        "K1 vec": pipeline.frame_pass.launches_vec,
+        "K2 vec": vs.launches_vec,
         "both": vs.launches - vs.launches_vs_only - vs.launches_wv_only,
         "K7": vs.launches_vs_only,
         "K8": vs.launches_wv_only,
@@ -392,8 +442,9 @@ def reset_counts() -> None:
     from obs_color_monitor_tpu_torch.ops import decode, fused_overlays, pipeline, scope_stats
 
     vs = scope_stats.vs_wv_counts
-    pipeline.frame_pass.launches = 0
+    pipeline.frame_pass.launches = pipeline.frame_pass.launches_vec = 0
     vs.launches = vs.launches_vs_only = vs.launches_wv_only = vs.launches_rect = 0
+    vs.launches_vec = 0
     fo = fused_overlays.fused_overlays_planes
     fo.launches = fo.launches_rect = 0
     decode.nv12_decode.launches = decode.nv12_16_decode.launches = 0
@@ -448,6 +499,9 @@ def path_counts(name: str, counts: dict, needs: tuple, device, both_as: str = "K
     missing = [k for k in needs if counts.get(k, 0) < 1]
     if device.type == "cuda" and missing:
         raise AssertionError(f"path {name} did not launch {missing}: {counts}")
+    k2 = counts[both_as] + counts["K7"] + counts["K8"]
+    if device.type == "cuda" and (counts["K1 vec"], counts["K2 vec"]) != (counts["K1"], k2):
+        raise AssertionError(f"path {name}: K1 or K2 left its fast form: {counts}")
     return counts
 
 
@@ -467,6 +521,7 @@ def phase_ingest_path(device, h=H4K, w=W4K, frames=2) -> dict:
     name = "ingest_stats scale2"
     counts = path_counts(name, read_counts(), ("K1", "K2"), device)
     counts["K9"] = counts["K1"] + counts["K2"]
+    counts["K9 vec"] = counts["K1 vec"] + counts["K2 vec"]
     for i, a in enumerate(host):
         ref = [t.numpy() for t in pl.fused_ingest_stats_scale2(torch.from_numpy(a), 2)]
         compare_fields(f"path {name} frame {i}", dict(zip("vwd", outs[i])), dict(zip("vwd", ref)))
@@ -809,12 +864,19 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
         fns[f"step_{kind}"] = lambda x=x: step(x, 1.0)
         fns[f"k1_{kind}"] = lambda x=x: pl.frame_pass(x, 1.0, **kw)
         fns[f"k1_plain_{kind}"] = lambda x=x: pl.frame_pass_reference(x, 1.0, **kw)
+        # the scale-only pass (analyze, the docks, K9): K1 without overlays
+        fns[f"k1_scale_{kind}"] = lambda x=x: pl.frame_pass(x, 1.0, with_overlays=False, **kw)
+        fns[f"k1_scale_plain_{kind}"] = lambda x=x: pl.frame_pass_reference(
+            x, 1.0, with_overlays=False, **kw)
         fns[f"k2_{kind}"] = lambda i=inputs: ss.vs_wv_counts(*i)
         fns[f"k2_plain_{kind}"] = lambda i=inputs: ss.vs_wv_counts_reference(*i)
         fns[f"k2_library_{kind}"] = library
-    # K1: frame read, three full-res overlays and the scaled/YUV planes
-    # written; ~60 ops per full-res pixel, ~30 per scaled one
+    # K1's overlay+scale pass: the frame read once, three full-res overlays
+    # and the scaled/YUV planes written; ~60 ops per full-res pixel, ~30 per
+    # scaled one.  Its scale-only pass: the frame read, the scaled planes
+    # written.
     bounds["K1"] = bound(H4K * W4K * (4 + 12) + h * w * 7, H4K * W4K * 60 + h * w * 30)
+    bounds["K1 scale"] = bound(H4K * W4K * 4 + h * w * 7, h * w * 30)
     # K2: u, v, data and mask read once, both histograms written
     bounds["K2"] = bound(h * w * 6 + 65536 * 4 + 3 * 256 * w * 4, h * w * 10)
 
@@ -898,10 +960,17 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     t = time_ms(fns)
     for k, v in t.items():
         print(f"time {k}: {v:.4f} ms  [{card}]", flush=True)
-    device_ms({k: fn for k, fn in fns.items() if k.startswith("k") and "plain" not in k}, card)
+    kernels = {k: fn for k, fn in fns.items() if k.startswith("k") and "plain" not in k}
+    dev = device_ms(kernels, card)
+    # the kernels' own calls (not the library's: bincount reads its maximum
+    # back to the host) as graph replays
+    graph = graph_ms({k: fn for k, fn in kernels.items() if "library" not in k})
+    for k, v in graph.items():
+        print(f"graph time {k}: {v:.4f} ms  [{card}]", flush=True)
+        dev[k] += (v,)
     for k, (ms, by) in sorted(bounds.items()):
         print(f"bound {k}: {ms:.4f} ms ({by})", flush=True)
-    return t, bounds
+    return t, bounds, dev
 
 
 def device_events(prof) -> list:
@@ -914,11 +983,42 @@ def device_events(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
+def graph_ms(fns: dict, calls: int = 10, reps: int = 20) -> dict:
+    """ms per call of each function with the host left out: ``calls`` calls
+    captured in one CUDA graph, replayed ``reps`` times between CUDA events
+    (kernels that overlap count once, the gaps between them count)."""
+    import torch
+
+    out = {}
+    for k, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out[k] = start.elapsed_time(end) / (reps * calls)
+    return out
+
+
 def device_ms(fns: dict, card: str, calls: int = 20) -> dict:
-    """Device time per call of each function: the sum of the kernels it
-    launched under torch.profiler over ``calls`` calls.  Unlike the event
-    times of :func:`time_ms`, this leaves out the host's issue time, which
-    a wrapper around a short kernel does not hide."""
+    """Device time per call of each function under torch.profiler over
+    ``calls`` calls: {key: (sum, span)}, the sum of its kernels' durations
+    and the median span from its first kernel's start to its last kernel's
+    end (kernels that overlap count once).  Unlike the event times of
+    :func:`time_ms`, both leave out the host's issue time, which a wrapper
+    around a short kernel does not hide.  The printed line also splits the
+    sum by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -930,9 +1030,23 @@ def device_ms(fns: dict, card: str, calls: int = 20) -> dict:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in device_events(prof))
-        out[k] = us / calls / 1000
-        print(f"device time {k}: {out[k]:.4f} ms  [{card}]", flush=True)
+        events = sorted(device_events(prof), key=lambda e: e.time_range.start)
+        names: dict[str, float] = {}
+        for e in events:
+            m = re.search(r"(\w+_kernel)\b", e.name)
+            name = m.group(1) if m else e.name[:40]
+            names[name] = names.get(name, 0.0) + e.time_range.elapsed_us() / calls / 1000
+        total = sum(names.values())
+        per = len(events) // calls
+        span = None
+        if per and len(events) == per * calls:
+            span = statistics.median(
+                max(e.time_range.end for e in events[i:i + per]) - events[i].time_range.start
+                for i in range(0, len(events), per)) / 1000
+        out[k] = (total, span)
+        split = ", ".join(f"{n} {ms:.4f}" for n, ms in names.items())
+        print(f"device time {k}: {total:.4f} ms, span {span if span is None else f'{span:.4f}'}"
+              f" ms ({split})  [{card}]", flush=True)
     return out
 
 
@@ -1016,7 +1130,64 @@ KERNELS = [  # id, wrapper, source, TPU kernel it replaces, timing key, library 
 ]
 # K9 runs the kernels of two sources; K2 and K3 also run with a dynamic rect
 SOURCES = {"K9": ("frame_pipeline.cu", "scope_stats.cu")}
+# the wrapper counts of calls in the fast form (K9's are its two wrappers')
+FAST = {"K1": ("K1 vec",), "K2": ("K2 vec",), "K9": ("K9 vec",)}
 RECT_MODE = {"K2": ("k2_rect", "k2_rect_library"), "K3": ("k3_rect", None)}
+
+
+def kernel_line(launches: dict, by_path: dict, err: dict, t: dict, bounds: dict,
+                dev: dict) -> list:
+    """The per-kernel entries of the JSON line: launches summed over the
+    main paths, the error against the plain version, event and device
+    times, bounds and the library call's time."""
+    kernels = []
+    csrc = "obs_color_monitor_tpu_torch/ops/csrc/"
+    for kid, wrapper, src, tpu, tkey, lkey in KERNELS:
+        if launches.get(kid, 0) < 1:
+            raise AssertionError(f"{kid} was not launched on any main path: {launches}")
+        entry = {
+            "name": f"{wrapper} ({kid})", "route": "cuda",
+            "source": csrc + src,
+            "replaces": f"obs_color_monitor_tpu/{tpu}",
+            "launches": launches[kid],
+            "launches_by_path": {p: c[kid] for p, c in by_path.items() if c.get(kid)},
+            "max_abs_err": err[kid],
+            "ms": t[tkey], "plain_ms": t[tkey.replace("_random", "") + "_plain"
+                                         + ("_random" if tkey.endswith("_random") else "")],
+            "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1],
+            "library_ms": t[lkey] if lkey else None,
+        }
+        if tkey in dev:
+            entry["device_ms"], entry["device_span_ms"], entry["graph_ms"] = dev[tkey]
+        if kid in FAST:
+            # calls in the 16-byte load / cp.async form over the main paths
+            entry["fast_launches"] = sum(launches.get(f, 0) for f in FAST[kid])
+        if kid == "K1":
+            entry.update({
+                "scale_only_ms": t["k1_scale_random"],
+                "scale_only_plain_ms": t["k1_scale_plain_random"],
+                "scale_only_device_ms": dev["k1_scale_random"][0],
+                "scale_only_graph_ms": dev["k1_scale_random"][2],
+                "scale_only_bound_ms": bounds["K1 scale"][0],
+            })
+        if kid == "K2":
+            entry.update({"flat_ms": t["k2_flat"], "flat_device_ms": dev["k2_flat"][0],
+                          "flat_device_span_ms": dev["k2_flat"][1],
+                          "flat_graph_ms": dev["k2_flat"][2]})
+        if kid in SOURCES:
+            entry["sources"] = [csrc + f for f in SOURCES[kid]]
+        if kid in RECT_MODE:
+            rkey, rlib = RECT_MODE[kid]
+            entry.update({
+                "rect_device_ms": dev[rkey][0], "rect_device_span_ms": dev[rkey][1],
+                "rect_graph_ms": dev[rkey][2],
+                "rect_launches": launches[f"{kid} rect"],
+                "rect_ms": t[rkey], "rect_plain_ms": t[rkey + "_plain"],
+                "rect_bound_ms": bounds[f"{kid} rect"][0],
+                "rect_library_ms": t[rlib] if rlib else None,
+            })
+        kernels.append(entry)
+    return kernels
 
 
 def main() -> int:
@@ -1042,6 +1213,7 @@ def main() -> int:
     phase_decode(device, err)
     phase_overlays(device, err)
     phase_stats_modes(device, err)
+    phase_stats_alignment(device, err)
     torch.cuda.synchronize()
     phase_rect_kernels(device, err)
     phase_ingest(device, err)
@@ -1054,41 +1226,14 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     phase_golden(device)
-    t, bounds = phase_timing(device, card)
+    t, bounds, dev = phase_timing(device, card)
     phase_profile(device, card)
     loaded = sorted(m for m in sys.modules if m in ("jax", "obs_color_monitor_tpu")
                     or m.startswith(("jax.", "obs_color_monitor_tpu.")))
     if loaded:
         raise AssertionError(f"the port loaded {loaded}")
 
-    kernels = []
-    csrc = "obs_color_monitor_tpu_torch/ops/csrc/"
-    for kid, wrapper, src, tpu, tkey, lkey in KERNELS:
-        if launches.get(kid, 0) < 1:
-            raise AssertionError(f"{kid} was not launched on any main path: {launches}")
-        entry = {
-            "name": f"{wrapper} ({kid})", "route": "cuda",
-            "source": csrc + src,
-            "replaces": f"obs_color_monitor_tpu/{tpu}",
-            "launches": launches[kid],
-            "launches_by_path": {p: c[kid] for p, c in by_path.items() if c.get(kid)},
-            "max_abs_err": err[kid],
-            "ms": t[tkey], "plain_ms": t[tkey.replace("_random", "") + "_plain"
-                                         + ("_random" if tkey.endswith("_random") else "")],
-            "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1],
-            "library_ms": t[lkey] if lkey else None,
-        }
-        if kid in SOURCES:
-            entry["sources"] = [csrc + f for f in SOURCES[kid]]
-        if kid in RECT_MODE:
-            rkey, rlib = RECT_MODE[kid]
-            entry.update({
-                "rect_launches": launches[f"{kid} rect"],
-                "rect_ms": t[rkey], "rect_plain_ms": t[rkey + "_plain"],
-                "rect_bound_ms": bounds[f"{kid} rect"][0],
-                "rect_library_ms": t[rlib] if rlib else None,
-            })
-        kernels.append(entry)
+    kernels = kernel_line(launches, by_path, err, t, bounds, dev)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Device times of kernels K1 and K2 at the main paths' shapes, for
+comparing checkouts of the repository on one CUDA card.
+
+    python3 kernel_times.py [CHECKOUT ...]
+
+Each checkout (default: this one) runs in a process of its own, in the
+order given, and imports its own package; the timing helpers are this
+checkout's ``chip_smoke``.  List a parent and a change as ``parent change
+change parent`` so that a drift of the card falls on both.  Per checkout it
+prints the card's name and power limit, then for each key the CUDA-event
+time per call (the host's issue time included), the CUDA-graph replay time
+(the host left out, overlapping kernels counted once) and the profiler's
+device time split by kernel name.  The keys: K1 at 3840x2160 packed, scale
+2, with overlays (``k1_overlay_scale``) and without (``k1_scale``); K2 on
+the 1920x1080 capture of a random and a flat 4K frame, both counts
+(``k2_random``, ``k2_flat``), with the ROI rect (``k2_rect``), each count
+alone (``k2_vs``, ``k2_wv``), and each alone with an empty rect, which
+counts nothing and leaves the fixed costs (``k2_vs_empty``,
+``k2_wv_empty``).  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+
+def inner(root: str) -> None:
+    import chip_smoke as cs  # this checkout's helpers, whatever the root
+
+    sys.path.insert(0, root)
+    import torch
+
+    from obs_color_monitor_tpu_torch.ops import pipeline as pl
+    from obs_color_monitor_tpu_torch.ops import scope_stats as ss
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(f"checkout {root}: {card}", flush=True)
+    fns = {}
+    kw = dict(packed=True, cs=2, scale=2, **cs.OV_ARGS)
+    x = cs.as_input(cs.make_frame(cs.H4K, cs.W4K, "random", 3), True, dev)
+    fns["k1_overlay_scale"] = lambda: pl.frame_pass(x, 1.0, **kw)
+    fns["k1_scale"] = lambda: pl.frame_pass(x, 1.0, **dict(kw, with_overlays=False))
+    roi = torch.tensor(cs.ROI, dtype=torch.int32, device=dev)
+    empty = torch.zeros(4, dtype=torch.int32, device=dev)
+    for kind in ("random", "flat"):
+        f = cs.as_input(cs.make_frame(cs.H4K, cs.W4K, kind, 3), True, dev)
+        i = pl.stats_inputs(*pl.frame_pass_reference(f, 1.0, **kw)[:2], False)
+        fns[f"k2_{kind}"] = lambda i=i: ss.vs_wv_counts(*i)
+        if kind == "random":
+            fns["k2_rect"] = lambda i=i: ss.vs_wv_counts(*i, rect=roi)
+            fns["k2_vs"] = lambda i=i: ss.vs_wv_counts(*i, need_wv=False)
+            fns["k2_wv"] = lambda i=i: ss.vs_wv_counts(*i, need_vs=False)
+            fns["k2_vs_empty"] = lambda i=i: ss.vs_wv_counts(*i, need_wv=False, rect=empty)
+            fns["k2_wv_empty"] = lambda i=i: ss.vs_wv_counts(*i, need_vs=False, rect=empty)
+    for k, v in cs.time_ms(fns).items():
+        print(f"time {k}: {v:.4f} ms", flush=True)
+    for k, v in cs.graph_ms(fns).items():
+        print(f"graph time {k}: {v:.4f} ms", flush=True)
+    cs.device_ms(fns, card)
+
+
+def main(argv: list[str]) -> int:
+    if argv[:1] == ["--inner"]:
+        inner(argv[1])
+        return 0
+    here = os.path.dirname(os.path.abspath(__file__))
+    rc = 0
+    for root in argv or [here]:
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--inner",
+                              os.path.abspath(root)], cwd=os.path.abspath(root)).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -39,8 +39,8 @@ _I = ctypes.c_int
 # plain int argument would be passed as 32 bits and cut the address)
 _SIGNATURES = {
     "ocm_frame_pass": [_VP, _VP, _VP, ctypes.c_float, _VP, _VP, _VP, _VP, _VP, _VP],
-    "ocm_scope_stats": [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _I, _I, _VP, _VP, _I, _I,
-                        _VP],
+    "ocm_scope_stats": [_VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _I, _I, _VP, _VP, _VP,
+                        _I, _I, _VP],
     "ocm_fused_overlays": [_VP, _VP, ctypes.c_float, _VP, _I, _VP, _VP, _VP, _VP],
     "ocm_nv12_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP],
     "ocm_nv12_16_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],

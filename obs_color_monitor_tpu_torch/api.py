@@ -157,10 +157,11 @@ def make_full_step(
             x = packed_view(frame)
         ds, yuv, zb_img, fc_img, fp_img = frame_pass(x, tm, **pass_kw)
         # K2 once per component family in use (twice only when the
-        # waveform and histogram families differ)
+        # waveform and histogram families differ); the vectorscope is
+        # counted only with the waveform's family, whose result it reads
         counts = {}
         for fam in {wv_yuv, hi_yuv}:
-            counts[fam] = vs_wv_counts(*stats_inputs(ds, yuv, fam))
+            counts[fam] = vs_wv_counts(*stats_inputs(ds, yuv, fam), need_vs=fam == wv_yuv)
         vs_i32 = counts[wv_yuv][0]
         vs_u8 = saturate_u8(vs_i32)
         vs_img = render_ops.render_vectorscope(

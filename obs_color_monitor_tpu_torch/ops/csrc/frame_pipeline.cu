@@ -16,13 +16,24 @@
 //
 // What bounds it: bytes.  At 4K the overlays write 12 B and read 4 B per
 // pixel (~133 MB), against a few integer operations per byte, so the pass
-// is far below the card's compute roof.  The design keeps every access
-// coalesced and each byte touched once from DRAM: one thread per pixel, a
-// warp on 32 consecutive pixels of a row, so each plane store is one full
-// 32-byte sector; the four neighbours the focus-peaking cross reads come
-// from L1/L2 (rows above and below were just read by neighbouring blocks).
-// The scaled planes are a second, smaller launch (one thread per output
-// pixel) that reads only the texels its sample needs.
+// is far below the card's compute roof.  The design moves every byte in
+// wide, whole-line accesses and reads the frame once:
+//   * tile launch (with overlays): a block of 256 threads owns a 16 x 256
+//     pixel tile and copies it with its 1-pixel halo into shared memory
+//     (16-byte cp.async chunks when the rows are 16-byte aligned, else one
+//     plain load per pixel or byte).  Each thread computes runs of 4
+//     consecutive pixels of a row from shared memory with overlay_math's
+//     per-pixel function and stores each of the 12 output byte planes as
+//     one 4-byte word, so a warp writes whole 128-byte lines; the
+//     false-colour band colours come from a 12-word shared table (a warp
+//     whose pixels span several bands reads it in one access);
+//   * at scale 2 the same tile also yields the scaled planes (tile rows and
+//     columns are even, so each output pixel's 2x2 texels are in it): one
+//     read of the frame for the overlays and the scaled planes;
+//   * scale launch (no overlays, or another scale): a thread makes 4
+//     adjacent output pixels, with 16-byte (packed) or 8-byte (planar)
+//     loads of the texels at scales 1 and 2, and 4-byte stores per plane.
+// The wrapper (ops/pipeline.py::frame_plan) picks the forms and the grids.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -36,33 +47,257 @@ struct PassParams {
   int scale;
   int packed;   // 1: (H, W) 32-bit packed RGBA; 0: planar (4, H, W) u8
   int kyuv[12]; // FIXED_COEFFS rows Y, U, V: (K_r, K_g, K_b, O)
+  int vec;      // 1: the frame's base and rows are 16-byte aligned (wide loads)
+  int fused;    // 1: the tile launch also writes the scale-2 planes
+  int tiles_x, tiles_y;          // tile launch grid (0: no overlays)
+  int scale_grid_x, scale_grid_y;  // scale launch grid (0: none)
 };
 
-template <bool PACKED>
-__global__ void overlay_kernel(const void* __restrict__ frame, const OverlayParams p,
-                               const float tm, uint8_t* __restrict__ zb,
-                               uint8_t* __restrict__ fc, uint8_t* __restrict__ fp) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= p.w || y >= p.h) return;
-  const OverlayPixel o = overlay_at<PACKED>(frame, p, x, y, tm, 0, 0, p.w, p.h);
-  const size_t plane = (size_t)p.h * p.w, i = (size_t)y * p.w + x;
+namespace {
+
+constexpr int TW = 256, TH = 16;  // tile: columns x rows of the full-res frame
+constexpr int TILE_THREADS = 256;
+constexpr int RUN = 4;            // consecutive pixels per thread and store
+constexpr int SROWS = TH + 2;     // tile rows with the halo row above and below
+constexpr int PK_PAD = 4;         // packed halo: one 16-byte chunk (4 px) each side
+constexpr int PK_COLS = TW + 2 * PK_PAD;
+constexpr int PL_PAD = 16;        // planar halo: one 16-byte chunk each side
+constexpr int PL_COLS = TW + 2 * PL_PAD;
+constexpr size_t PK_SMEM = (size_t)SROWS * PK_COLS * 4;
+constexpr size_t PL_SMEM = (size_t)4 * SROWS * PL_COLS;
+constexpr int SC_BX = 32, SC_BY = 8;  // scale launch block; a thread makes RUN outputs
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void unpack(uint32_t v, int out[4]) {
+  out[0] = v & 255;
+  out[1] = (v >> 8) & 255;
+  out[2] = (v >> 16) & 255;
+  out[3] = v >> 24;
+}
+
+// One byte plane's RUN outputs from (x, y) on, packed in a word (byte j =
+// pixel x + j): one 4-byte store when the run is whole and its address
+// 4-byte aligned (row width % 4 == 0), else byte by byte.
+__device__ __forceinline__ void store_run(uint8_t* __restrict__ plane, int width, int x, int y,
+                                          uint32_t packed, bool word) {
+  uint8_t* dst = plane + (size_t)y * width + x;
+  if (word) {
+    *reinterpret_cast<uint32_t*>(dst) = packed;
+  } else {
 #pragma unroll
-  for (int ch = 0; ch < 4; ++ch) {
-    zb[ch * plane + i] = o.zb[ch];
-    fc[ch * plane + i] = o.fc[ch];
-    fp[ch * plane + i] = o.fp[ch];
+    for (int j = 0; j < RUN; ++j)
+      if (x + j < width) dst[j] = (uint8_t)(packed >> (8 * j));
   }
 }
 
+// The scaled planes and their Q12 YUV of RUN output pixels from (ox, oy).
+__device__ __forceinline__ void store_scaled(const PassParams& p, uint8_t* __restrict__ ds,
+                                             uint8_t* __restrict__ yuv, int ox, int oy,
+                                             const int c[RUN][4]) {
+  const size_t plane = (size_t)p.h * p.w;
+  const bool word = (p.w & 3) == 0;  // ox % 4 == 0, so the run is whole
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    uint32_t b = 0;
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) b |= (uint32_t)c[j][ch] << (8 * j);
+    store_run(ds + ch * plane, p.w, ox, oy, b, word);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int* kk = p.kyuv + 4 * k;
+    uint32_t b = 0;
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      // arithmetic shift = floor division, as the spec's int64 >> 12
+      const int q = (kk[0] * c[j][0] + kk[1] * c[j][1] + kk[2] * c[j][2] + kk[3] + 2048) >> 12;
+      b |= (uint32_t)min(max(q, 0), 255) << (8 * j);
+    }
+    store_run(yuv + k * plane, p.w, ox, oy, b, word);
+  }
+}
+
+// ---- tile launch: overlays, and at scale 2 the scaled planes ----
+
+// The tile with its halo into shared memory.  Packed: s32[r][c] = pixel
+// (y0 - 1 + r, x0 - PK_PAD + c); planar: s8[ch][r][c] = plane ch at
+// (y0 - 1 + r, x0 - PL_PAD + c).  Cells outside the frame stay unwritten;
+// the overlay math never reads them (its neighbour flags are off there).
+template <bool PACKED, bool VEC>
+__device__ __forceinline__ void load_tile(const void* __restrict__ frame, int H, int W, int x0,
+                                          int y0, void* smem) {
+  if (PACKED) {
+    const uint32_t* f = (const uint32_t*)frame;
+    uint32_t* s = (uint32_t*)smem;
+    if (VEC) {  // W % 4 == 0: a 4-pixel chunk lies wholly inside or outside
+      constexpr int CH = PK_COLS / 4;
+      for (int k = threadIdx.x; k < SROWS * CH; k += TILE_THREADS) {
+        const int r = k / CH, c = (k - r * CH) * 4;
+        const int y = y0 - 1 + r, x = x0 - PK_PAD + c;
+        if (y >= 0 && y < H && x >= 0 && x < W) cp_async16(s + r * PK_COLS + c, f + (size_t)y * W + x);
+      }
+      cp_async_wait_all();
+    } else {
+      for (int k = threadIdx.x; k < SROWS * PK_COLS; k += TILE_THREADS) {
+        const int r = k / PK_COLS, c = k - r * PK_COLS;
+        const int y = y0 - 1 + r, x = x0 - PK_PAD + c;
+        if (y >= 0 && y < H && x >= 0 && x < W) s[k] = __ldg(f + (size_t)y * W + x);
+      }
+    }
+  } else {
+    const uint8_t* f = (const uint8_t*)frame;
+    uint8_t* s = (uint8_t*)smem;
+    const size_t plane = (size_t)H * W;
+    if (VEC) {  // W % 16 == 0
+      constexpr int CH = PL_COLS / 16;
+      for (int k = threadIdx.x; k < 4 * SROWS * CH; k += TILE_THREADS) {
+        const int pr = k / CH, c = (k - pr * CH) * 16;  // pr = plane * SROWS + row
+        const int ch = pr / SROWS, r = pr - ch * SROWS;
+        const int y = y0 - 1 + r, x = x0 - PL_PAD + c;
+        if (y >= 0 && y < H && x >= 0 && x < W)
+          cp_async16(s + pr * PL_COLS + c, f + ch * plane + (size_t)y * W + x);
+      }
+      cp_async_wait_all();
+    } else {
+      for (int k = threadIdx.x; k < 4 * SROWS * PL_COLS; k += TILE_THREADS) {
+        const int pr = k / PL_COLS, c = k - pr * PL_COLS;
+        const int ch = pr / SROWS, r = pr - ch * SROWS;
+        const int y = y0 - 1 + r, x = x0 - PL_PAD + c;
+        if (y >= 0 && y < H && x >= 0 && x < W) s[k] = __ldg(f + ch * plane + (size_t)y * W + x);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// RUN pixels of tile row r (smem row, halo included) from tile column c:
+// out[1 + j] = pixel c + j, out[0] / out[RUN + 1] its left / right
+// neighbours (with_sides), as (R, G, B, A).
 template <bool PACKED>
-__global__ void scale_kernel(const void* __restrict__ frame, const PassParams p,
-                             uint8_t* __restrict__ ds, uint8_t* __restrict__ yuv) {
-  const int ox = blockIdx.x * blockDim.x + threadIdx.x;
-  const int oy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (ox >= p.w || oy >= p.h) return;
+__device__ __forceinline__ void read_run(const void* smem, int r, int c, int out[RUN + 2][4],
+                                         bool with_sides) {
+  if (PACKED) {
+    const uint32_t* s = (const uint32_t*)smem + r * PK_COLS + PK_PAD + c;
+    const uint4 q = *reinterpret_cast<const uint4*>(s);
+    unpack(q.x, out[1]);
+    unpack(q.y, out[2]);
+    unpack(q.z, out[3]);
+    unpack(q.w, out[4]);
+    if (with_sides) {
+      unpack(s[-1], out[0]);
+      unpack(s[RUN], out[RUN + 1]);
+    }
+  } else {
+    const uint8_t* s = (const uint8_t*)smem + r * PL_COLS + PL_PAD + c;
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      const uint8_t* sp = s + ch * SROWS * PL_COLS;
+      const uint32_t q = *reinterpret_cast<const uint32_t*>(sp);
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) out[1 + j][ch] = (q >> (8 * j)) & 255;
+      if (with_sides) {
+        out[0][ch] = sp[-1];
+        out[RUN + 1][ch] = sp[RUN];
+      }
+    }
+  }
+}
+
+// 4 blocks per SM: at most 64 registers a thread (a few bytes spill; still
+// faster than 3 blocks of 80 registers, which spill none)
+template <bool PACKED, bool VEC, bool FUSED>
+__global__ void __launch_bounds__(TILE_THREADS, 4)
+tile_kernel(const void* __restrict__ frame, const OverlayParams op, const PassParams p,
+            const float tm, uint8_t* __restrict__ zb, uint8_t* __restrict__ fc,
+            uint8_t* __restrict__ fp, uint8_t* __restrict__ ds, uint8_t* __restrict__ yuv) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ uint32_t fc_table[12];  // false colour's band colours, RGBA words
+  const int H = p.h4, W = p.w4;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  if (threadIdx.x < 12) fc_table[threadIdx.x] = fc_color_word(op, threadIdx.x);
+  load_tile<PACKED, VEC>(frame, H, W, x0, y0, smem);  // ends with a barrier
+
+  // overlays: a thread takes runs at column cx of rows ty, ty + 4, ...
+  const int cx = (threadIdx.x & 63) * RUN, ty = threadIdx.x >> 6;
+  const size_t plane = (size_t)H * W;
+  const bool word = (W & 3) == 0;  // x % 4 == 0, so the run is whole
+#pragma unroll 1
+  for (int ry = ty; ry < TH; ry += TILE_THREADS / 64) {
+    const int x = x0 + cx, y = y0 + ry;
+    if (x >= W || y >= H) continue;
+    int row[RUN + 2][4], up[RUN + 2][4], dn[RUN + 2][4];
+    read_run<PACKED>(smem, ry + 1, cx, row, true);
+    read_run<PACKED>(smem, ry, cx, up, false);
+    read_run<PACKED>(smem, ry + 2, cx, dn, false);
+    // each plane's RUN output bytes packed into one word as they come
+    uint32_t z[4] = {0, 0, 0, 0}, f[4] = {0, 0, 0, 0}, k[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      const int xj = x + j;
+      const OverlayPixel o = overlay_pixel(op, xj, y, tm, row[j + 1], row[j], row[j + 2],
+                                           up[j + 1], dn[j + 1], xj > 0, xj < W - 1, y > 0,
+                                           y < H - 1, fc_table);
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        z[ch] |= (uint32_t)o.zb[ch] << (8 * j);
+        f[ch] |= (uint32_t)o.fc[ch] << (8 * j);
+        k[ch] |= (uint32_t)o.fp[ch] << (8 * j);
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      store_run(zb + ch * plane, W, x, y, z[ch], word);
+      store_run(fc + ch * plane, W, x, y, f[ch], word);
+      store_run(fp + ch * plane, W, x, y, k[ch], word);
+    }
+  }
+
+  if (FUSED) {  // scale 2: output (ox, oy) averages texels 2ox..2ox+1 x 2oy..2oy+1
+    const int ocx = (threadIdx.x & 31) * RUN, ory = threadIdx.x >> 5;  // 128 x 8 outputs
+    const int ox = x0 / 2 + ocx, oy = y0 / 2 + ory;
+    if (ox < p.w && oy < p.h) {
+      int c[RUN][4];
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) c[j][ch] = 2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int a[RUN + 2][4], b[RUN + 2][4];
+        read_run<PACKED>(smem, 2 * ory + r + 1, 2 * ocx, a, false);
+        read_run<PACKED>(smem, 2 * ory + r + 1, 2 * ocx + RUN, b, false);
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) {
+          c[0][ch] += a[1][ch] + a[2][ch];
+          c[1][ch] += a[3][ch] + a[4][ch];
+          c[2][ch] += b[1][ch] + b[2][ch];
+          c[3][ch] += b[3][ch] + b[4][ch];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) c[j][ch] >>= 2;
+      store_scaled(p, ds, yuv, ox, oy, c);
+    }
+  }
+}
+
+// ---- scale launch ----
+
+// The scaled pixel (ox, oy) by the sampling rule, texel by texel.
+template <bool PACKED>
+__device__ __forceinline__ void sample(const void* __restrict__ frame, const PassParams& p,
+                                       int ox, int oy, int c[4]) {
   const int s = p.scale;
-  int c[4];
   if (s == 1) {
     load_px<PACKED>(frame, p.h4, p.w4, ox, oy, c);
   } else if (s & 1) {
@@ -83,45 +318,147 @@ __global__ void scale_kernel(const void* __restrict__ frame, const PassParams p,
 #pragma unroll
     for (int ch = 0; ch < 4; ++ch) c[ch] >>= 2;
   }
-  const size_t plane = (size_t)p.h * p.w, i = (size_t)oy * p.w + ox;
+}
+
+// 8 texels (2 * RUN) of frame row y from column x into t[8][4]: two 16-byte
+// loads (packed) or one 8-byte load per plane (planar).
+template <bool PACKED>
+__device__ __forceinline__ void load_wide(const void* __restrict__ frame, const PassParams& p,
+                                          int x, int y, int n, int t[2 * RUN][4]) {
+  const size_t i = (size_t)y * p.w4 + x;
+  if (PACKED) {
+    const uint4* f = reinterpret_cast<const uint4*>((const uint32_t*)frame + i);
+    const uint4 q0 = __ldg(f);
+    unpack(q0.x, t[0]);
+    unpack(q0.y, t[1]);
+    unpack(q0.z, t[2]);
+    unpack(q0.w, t[3]);
+    if (n > RUN) {
+      const uint4 q1 = __ldg(f + 1);
+      unpack(q1.x, t[4]);
+      unpack(q1.y, t[5]);
+      unpack(q1.z, t[6]);
+      unpack(q1.w, t[7]);
+    }
+  } else {
+    const uint8_t* f = (const uint8_t*)frame + i;
+    const size_t plane = (size_t)p.h4 * p.w4;
 #pragma unroll
-  for (int ch = 0; ch < 4; ++ch) ds[ch * plane + i] = (uint8_t)c[ch];
+    for (int ch = 0; ch < 4; ++ch) {
+      if (n > RUN) {
+        const uint2 q = __ldg(reinterpret_cast<const uint2*>(f + ch * plane));
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const int* kk = p.kyuv + 4 * k;
-    // arithmetic shift = floor division, as the spec's int64 >> 12
-    const int q = (kk[0] * c[0] + kk[1] * c[1] + kk[2] * c[2] + kk[3] + 2048) >> 12;
-    yuv[k * plane + i] = (uint8_t)min(max(q, 0), 255);
+        for (int j = 0; j < RUN; ++j) {
+          t[j][ch] = (q.x >> (8 * j)) & 255;
+          t[RUN + j][ch] = (q.y >> (8 * j)) & 255;
+        }
+      } else {
+        const uint32_t q = __ldg(reinterpret_cast<const uint32_t*>(f + ch * plane));
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) t[j][ch] = (q >> (8 * j)) & 255;
+      }
+    }
   }
 }
+
+template <bool PACKED, bool VEC>
+__global__ void __launch_bounds__(SC_BX * SC_BY)
+scale_kernel(const void* __restrict__ frame, const PassParams p, uint8_t* __restrict__ ds,
+             uint8_t* __restrict__ yuv) {
+  const int ox = (blockIdx.x * SC_BX + threadIdx.x) * RUN;
+  const int oy = blockIdx.y * SC_BY + threadIdx.y;
+  if (ox >= p.w || oy >= p.h) return;
+  int c[RUN][4];
+  // wide loads at scales 1 and 2 for a whole run: its texels lie in the
+  // frame (2 * ox + 7 <= 2 * w - 1) and are 16-byte (packed) or 4/8-byte
+  // (planar, W % 16 == 0) aligned, ox being a multiple of 4
+  if (VEC && p.scale <= 2 && ox + RUN <= p.w) {
+    if (p.scale == 1) {
+      int t[2 * RUN][4];
+      load_wide<PACKED>(frame, p, ox, oy, RUN, t);
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) c[j][ch] = t[j][ch];
+    } else {
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) c[j][ch] = 2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int t[2 * RUN][4];
+        load_wide<PACKED>(frame, p, 2 * ox, 2 * oy + r, 2 * RUN, t);
+#pragma unroll
+        for (int j = 0; j < RUN; ++j)
+#pragma unroll
+          for (int ch = 0; ch < 4; ++ch) c[j][ch] += t[2 * j][ch] + t[2 * j + 1][ch];
+      }
+#pragma unroll
+      for (int j = 0; j < RUN; ++j)
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) c[j][ch] >>= 2;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      if (ox + j < p.w) {
+        sample<PACKED>(frame, p, ox + j, oy, c[j]);
+      } else {
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) c[j][ch] = 0;
+      }
+    }
+  }
+  store_scaled(p, ds, yuv, ox, oy, c);
+}
+
+template <bool PACKED, bool VEC, bool FUSED>
+cudaError_t launch_tiles(const PassParams& p, const OverlayParams& op, const void* frame, float tm,
+                         void* zb, void* fc, void* fp, void* ds, void* yuv, cudaStream_t st) {
+  const size_t smem = PACKED ? PK_SMEM : PL_SMEM;
+  tile_kernel<PACKED, VEC, FUSED><<<dim3(p.tiles_x, p.tiles_y), TILE_THREADS, smem, st>>>(
+      frame, op, p, tm, (uint8_t*)zb, (uint8_t*)fc, (uint8_t*)fp, (uint8_t*)ds, (uint8_t*)yuv);
+  return cudaGetLastError();
+}
+
+template <bool PACKED, bool VEC>
+cudaError_t launch_pass(const PassParams& p, const OverlayParams& op, const void* frame, float tm,
+                        void* zb, void* fc, void* fp, void* ds, void* yuv, cudaStream_t st) {
+  if (p.tiles_x > 0) {
+    const cudaError_t err =
+        p.fused ? launch_tiles<PACKED, VEC, true>(p, op, frame, tm, zb, fc, fp, ds, yuv, st)
+                : launch_tiles<PACKED, VEC, false>(p, op, frame, tm, zb, fc, fp, ds, yuv, st);
+    if (err != cudaSuccess) return err;
+  }
+  if (p.scale_grid_x > 0) {
+    scale_kernel<PACKED, VEC><<<dim3(p.scale_grid_x, p.scale_grid_y), dim3(SC_BX, SC_BY), 0, st>>>(
+        frame, p, (uint8_t*)ds, (uint8_t*)yuv);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" const char* ocm_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// zb/fc/fp may all be null (no overlays).  Launches on `stream`, allocates
-// nothing, returns cudaGetLastError() after its launches.
+// zb/fc/fp may all be null (no overlays: tiles_x == 0).  The grids and
+// forms come from PassParams (ops/pipeline.py::frame_plan).  Launches on
+// `stream`, allocates nothing, returns cudaGetLastError() after its
+// launches.
 extern "C" int ocm_frame_pass(const PassParams* pp, const OverlayParams* op,
                               const void* frame, float tm, void* zb, void* fc, void* fp,
                               void* ds, void* yuv, void* stream) {
   const PassParams p = *pp;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 block(32, 8);
-  if (zb != nullptr) {
-    const dim3 grid((p.w4 + 31) / 32, (p.h4 + 7) / 8);
-    if (p.packed)
-      overlay_kernel<true><<<grid, block, 0, st>>>(frame, *op, tm, (uint8_t*)zb,
-                                                   (uint8_t*)fc, (uint8_t*)fp);
-    else
-      overlay_kernel<false><<<grid, block, 0, st>>>(frame, *op, tm, (uint8_t*)zb,
-                                                    (uint8_t*)fc, (uint8_t*)fp);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((p.w + 31) / 32, (p.h + 7) / 8);
+  cudaError_t err;
   if (p.packed)
-    scale_kernel<true><<<grid, block, 0, st>>>(frame, p, (uint8_t*)ds, (uint8_t*)yuv);
+    err = p.vec ? launch_pass<true, true>(p, *op, frame, tm, zb, fc, fp, ds, yuv, st)
+                : launch_pass<true, false>(p, *op, frame, tm, zb, fc, fp, ds, yuv, st);
   else
-    scale_kernel<false><<<grid, block, 0, st>>>(frame, p, (uint8_t*)ds, (uint8_t*)yuv);
-  return (int)cudaGetLastError();
+    err = p.vec ? launch_pass<false, true>(p, *op, frame, tm, zb, fc, fp, ds, yuv, st)
+                : launch_pass<false, false>(p, *op, frame, tm, zb, fc, fp, ds, yuv, st);
+  return (int)err;
 }

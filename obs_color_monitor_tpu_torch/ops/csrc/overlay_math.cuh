@@ -46,20 +46,31 @@ __device__ __forceinline__ int absdiff3(const int a[4], const int b[4]) {
   return abs(a[0] - b[0]) + abs(a[1] - b[1]) + abs(a[2] - b[2]);
 }
 
+// The 12 false-colour band colours packed as RGBA words (byte 0 = R), for a
+// table in shared memory: a warp whose pixels fall in different bands reads
+// a shared table in one access, where indexing the kernel parameter
+// serializes one constant-cache access per band.
+__device__ __forceinline__ uint32_t fc_color_word(const OverlayParams& p, int band) {
+  const int* k = p.fc_color + 4 * band;
+  return (uint32_t)k[0] | (uint32_t)k[1] << 8 | (uint32_t)k[2] << 16 | (uint32_t)k[3] << 24;
+}
+
 // c: the pixel (R, G, B, A); l/r/u/d: its left/right/upper/lower
 // neighbours (RGB used), each valid only where its has_ flag is set (the
 // edge clamp of the sampler makes a missing neighbour contribute 0).
+// fc_table: the band colours as fc_color_word gives them, or null to read
+// them from p.
 __device__ __forceinline__ OverlayPixel overlay_pixel(
     const OverlayParams& p, int x, int y, float tm, const int c[4],
     const int l[4], const int r[4], const int u[4], const int d[4],
-    bool has_l, bool has_r, bool has_u, bool has_d) {
+    bool has_l, bool has_r, bool has_u, bool has_d, const uint32_t* fc_table = nullptr) {
   OverlayPixel o;
 
   // zebra: stripes where th_low <= luma <= th_high and phase mod 6 < 3
   const int luma_zb = luma_fixed(p.kl_zb, c);
   // one float32 add, rounded to nearest, never contracted with anything
-  int phase = (int)floorf(__fadd_rn((float)(x + y + 1), tm));
-  phase = ((phase % 6) + 6) % 6;  // floored modulo, as JAX's %
+  int phase = (int)floorf(__fadd_rn((float)(x + y + 1), tm)) % 6;
+  if (phase < 0) phase += 6;  // floored modulo, as JAX's %
   const bool stripe = luma_zb >= p.zb_lo && luma_zb <= p.zb_hi && phase < 3;
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) o.zb[ch] = stripe ? 0 : (uint8_t)c[ch];
@@ -70,8 +81,14 @@ __device__ __forceinline__ OverlayPixel overlay_pixel(
   int band = 0;
 #pragma unroll
   for (int i = 0; i < 11; ++i) band += luma_fc >= p.fc_thresh[i];
+  if (fc_table != nullptr) {
+    const uint32_t col = fc_table[band];
 #pragma unroll
-  for (int ch = 0; ch < 4; ++ch) o.fc[ch] = (uint8_t)p.fc_color[band * 4 + ch];
+    for (int ch = 0; ch < 4; ++ch) o.fc[ch] = (uint8_t)(col >> (8 * ch));
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) o.fc[ch] = (uint8_t)p.fc_color[band * 4 + ch];
+  }
 
   // focus peaking: 4-neighbour cross of |neighbour - centre| over RGB
   int acc = 0;

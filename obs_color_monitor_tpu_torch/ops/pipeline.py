@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,8 +43,45 @@ class PassParams(ctypes.Structure):
 
     _fields_ = [
         ("h4", _I), ("w4", _I), ("h", _I), ("w", _I), ("scale", _I),
-        ("packed", _I), ("kyuv", _I * 12),
+        ("packed", _I), ("kyuv", _I * 12), ("vec", _I), ("fused", _I),
+        ("tiles_x", _I), ("tiles_y", _I), ("scale_grid_x", _I), ("scale_grid_y", _I),
     ]
+
+
+# K1's launch geometry, as frame_pipeline.cu lays it out: a tile-launch
+# block owns TILE_H x TILE_W full-res pixels (its threads take runs of RUN
+# pixels: TILE_W // RUN runs across, TILE_ROW_GROUPS rows at a time) and at
+# scale 2 also the TILE_H // 2 x TILE_W // 2 scaled pixels under them; a
+# scale-launch block makes SCALE_BLOCK_H rows of SCALE_BLOCK_W // RUN runs.
+TILE_W, TILE_H, RUN = 256, 16, 4
+TILE_ROW_GROUPS = 256 // (TILE_W // RUN)
+SCALE_BLOCK_W, SCALE_BLOCK_H = 32 * RUN, 8
+
+
+class FramePlan(NamedTuple):
+    """How K1 runs on one frame shape: ``vec`` the 16-byte load form,
+    ``fused`` the tile launch also writes the scale-2 planes, the tile
+    launch's grid (0, 0 without overlays) and the scale launch's (0, 0
+    when fused)."""
+
+    vec: bool
+    fused: bool
+    tiles: tuple[int, int]
+    scale_grid: tuple[int, int]
+
+
+def frame_plan(h4: int, w4: int, scale: int, packed: bool, with_overlays: bool,
+               base_aligned: bool = True) -> FramePlan:
+    """K1's forms and grids for a (h4, w4) frame at ``scale``: pure, so the
+    CPU tests hold it to cover every pixel once.  The wide-load form needs a
+    16-byte aligned frame whose rows are too: W % 4 == 0 packed, W % 16 ==
+    0 planar."""
+    h, w = _scaled_dims(h4, w4, scale)
+    vec = base_aligned and w4 % (4 if packed else 16) == 0
+    fused = with_overlays and scale == 2
+    tiles = (-(-w4 // TILE_W), -(-h4 // TILE_H)) if with_overlays else (0, 0)
+    grid = (0, 0) if fused else (-(-w // SCALE_BLOCK_W), -(-h // SCALE_BLOCK_H))
+    return FramePlan(vec, fused, tiles, grid)
 
 
 class OverlayParams(ctypes.Structure):
@@ -58,9 +96,10 @@ class OverlayParams(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=64)
-def _pass_params(h4, w4, scale, packed, cs) -> PassParams:
+def _pass_params(h4, w4, scale, packed, cs, plan: FramePlan) -> PassParams:
     k = FIXED_COEFFS[Colorspace(cs)].reshape(-1).tolist()
-    return PassParams(h4, w4, h4 // scale, w4 // scale, scale, int(packed), (_I * 12)(*k))
+    return PassParams(h4, w4, h4 // scale, w4 // scale, scale, int(packed), (_I * 12)(*k),
+                      int(plan.vec), int(plan.fused), *plan.tiles, *plan.scale_grid)
 
 
 @functools.lru_cache(maxsize=64)
@@ -90,6 +129,16 @@ def _scaled_dims(h4: int, w4: int, scale: int) -> tuple[int, int]:
     if h == 0 or w == 0:
         raise ValueError(f"frame {w4}x{h4} too small for scale {scale}")
     return h, w
+
+
+def check_frame_inputs(frame: torch.Tensor, packed: bool, scale: int) -> tuple[int, int, int, int]:
+    """K1's argument checks (what the kernel takes): raise ValueError on
+    anything else; return (H, W, h, w)."""
+    h4, w4 = _frame_dims(frame, packed)
+    h, w = _scaled_dims(h4, w4, scale)
+    if not frame.is_contiguous():
+        raise ValueError("frame_pass: the frame must be contiguous")
+    return h4, w4, h, w
 
 
 def frame_pass_reference(
@@ -152,17 +201,16 @@ def frame_pass(
         return frame_pass_reference(frame, tm, **kw)
     if frame.device.type != "cuda":
         raise ValueError(f"frame_pass: unsupported device {frame.device}")
-    h4, w4 = _frame_dims(frame, packed)
-    h, w = _scaled_dims(h4, w4, scale)
-    if not frame.is_contiguous():
-        raise ValueError("frame_pass: the frame must be contiguous")
+    h4, w4, h, w = check_frame_inputs(frame, packed, scale)
     dev = frame.device
     ds = torch.empty((4, h, w), dtype=torch.uint8, device=dev)
     yuv = torch.empty((3, h, w), dtype=torch.uint8, device=dev)
     zb = fc = fp = None
     if with_overlays:
         zb, fc, fp = (torch.empty((4, h4, w4), dtype=torch.uint8, device=dev) for _ in range(3))
-    pp = _pass_params(h4, w4, int(scale), bool(packed), int(cs))
+    plan = frame_plan(h4, w4, int(scale), bool(packed), bool(with_overlays),
+                      frame.data_ptr() % 16 == 0)
+    pp = _pass_params(h4, w4, int(scale), bool(packed), int(cs), plan)
     op = _overlay_params(h4, w4, float(th_low), float(th_high), int(zb_cs), int(fc_cs),
                          int(peak_th), kw["peak_rgba"])
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -174,11 +222,15 @@ def frame_pass(
             _kernels.stream_handle(dev),
         )
     frame_pass.launches += 1
+    if plan.vec:
+        frame_pass.launches_vec += 1
     _kernels.check(rc, "frame_pass")
     return ds, yuv, zb, fc, fp
 
 
+# every call; of which in the 16-byte load form (frame_plan's ``vec``)
 frame_pass.launches = 0
+frame_pass.launches_vec = 0
 
 
 def stats_inputs(ds: torch.Tensor, yuv: torch.Tensor, yuv_data: bool):

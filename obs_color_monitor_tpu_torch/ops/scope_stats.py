@@ -12,6 +12,9 @@ are final.  The CUDA source is ``ops/csrc/scope_stats.cu``.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from .. import _kernels
@@ -52,10 +55,105 @@ def vs_wv_counts_reference(
     return vs, wv
 
 
+# K2's launch geometry, as scope_stats.cu lays it out.  The counters are
+# 16 bits wide, so no block may add more than FIELD_MAX to one of them.
+FIELD_MAX = 65535
+VS_CLUSTER = 8  # vectorscope blocks per cluster, fixed in scope_stats.cu
+# vectorscope blocks aimed at: one 160 KB block per SM, and 14 clusters of
+# 8 are as many as an H100 holds at once; beside the waveform, which
+# overlaps it (PDL), fewer, leaving that grid SMs
+VS_BLOCKS_ALONE = 112
+VS_BLOCKS_BESIDE_WV = 64
+VS_TILE = 8192  # pixels per shared-memory stage, the least a block takes
+VS_MAX_BLOCK_PIXELS = FIELD_MAX // 16 * 16  # 65520: a run is whole 16-byte words
+# waveform blocks per 32-column strip, splitting its rows (the two sizes
+# scope_stats.cu is compiled for)
+WV_CLUSTER_ALONE = 4
+WV_CLUSTER_BESIDE_VS = 2
+WV_STRIP = 32
+
+
+class StatsPlan(ctypes.Structure):
+    """How K2 runs on one plane shape (mirror of ``StatsPlan`` in
+    ``scope_stats.cu``): the vectorscope's clusters of VS_CLUSTER blocks,
+    each counting a run of ``vs_per_block`` pixels; the waveform's strips of
+    32 columns, each split into ``wv_cluster`` runs of ``wv_rows`` rows; and
+    whether each count takes the 16-byte (cp.async) load form."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "vs_clusters", "vs_per_block", "vs_vec", "wv_strips", "wv_cluster", "wv_rows", "wv_vec")]
+
+    def as_tuple(self) -> tuple:
+        return tuple(getattr(self, name) for name, _ in self._fields_)
+
+
+@functools.lru_cache(maxsize=64)
+def stats_plan(h: int, w: int, *, vs_aligned: bool = True, wv_aligned: bool = True,
+               need_vs: bool = True, need_wv: bool = True) -> StatsPlan:
+    """K2's grids and forms for (h, w) planes: pure, and a function of the
+    shape, the counts asked for and the planes' alignment only, never of a
+    rect.  ``vs_aligned``: u and v start on 16-byte boundaries;
+    ``wv_aligned``: the data planes and the mask do and so does the plane
+    stride (the rows also need w % 16 == 0).  Every pixel falls in exactly
+    one vectorscope run and one waveform (strip, row run), and no run can
+    put more than FIELD_MAX in a field."""
+    if h < 0 or w < 0:
+        raise ValueError(f"stats_plan: bad shape {(h, w)}")
+    both = need_vs and need_wv
+    vs_blocks = VS_BLOCKS_BESIDE_WV if both else VS_BLOCKS_ALONE
+    wv_cluster = WV_CLUSTER_BESIDE_VS if both else WV_CLUSTER_ALONE
+    n = h * w
+    per = max(-(-n // vs_blocks), VS_TILE)
+    per = min(-(-per // 16) * 16, VS_MAX_BLOCK_PIXELS)
+    clusters = max(1, -(-(-(-n // per)) // VS_CLUSTER))
+    rows = max(1, -(-h // wv_cluster))
+    if rows > FIELD_MAX:
+        raise ValueError(f"stats_plan: {h} rows is more than {wv_cluster * FIELD_MAX}")
+    return StatsPlan(clusters, per, int(vs_aligned), -(-w // WV_STRIP), wv_cluster, rows,
+                     int(wv_aligned and w % 16 == 0))
+
+
+def _aligned(*ts) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
 def _check_plane(name: str, t: torch.Tensor, h: int, w: int) -> None:
     if t.dtype not in (torch.uint8, torch.bool) or t.shape != (h, w) or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous ({h}, {w}) u8 plane, got "
                          f"{tuple(t.shape)} {t.dtype}")
+
+
+def check_stats_inputs(u, v, data, mask, *, need_vs: bool, need_wv: bool, rect) -> tuple[int, int]:
+    """K2's argument checks (what the kernels take): raise ValueError on
+    anything else; return the planes' (h, w)."""
+    ref = u if need_vs else data
+    h, w = ref.shape[-2:]
+    tensors = []
+    if need_vs:
+        for name, t in (("u", u), ("v", v)):
+            _check_plane(name, t, h, w)
+        tensors += [u, v]
+    if need_wv:
+        if (
+            data.dtype != torch.uint8
+            or data.shape != (3, h, w)
+            or data.stride()[1:] != (w, 1)
+        ):
+            raise ValueError(f"data must be (3, {h}, {w}) u8 with contiguous planes")
+        tensors.append(data)
+        if mask is not None:
+            _check_plane("mask", mask, h, w)
+            tensors.append(mask)
+    if rect is not None:
+        if rect.dtype != torch.int32 or rect.shape != (4,) or not rect.is_contiguous():
+            raise ValueError(f"rect must be a contiguous (4,) int32 tensor, got "
+                             f"{tuple(rect.shape)} {rect.dtype}")
+        if h * w >= 1 << 31:
+            raise ValueError("vs_wv_counts: a rect needs fewer than 2**31 pixels")
+        tensors.append(rect)
+    if any(t.device != ref.device for t in tensors):
+        raise ValueError("vs_wv_counts: inputs on different devices")
+    return h, w
 
 
 def vs_wv_counts(
@@ -95,45 +193,35 @@ def vs_wv_counts(
                                       rect=rect)
     if ref.device.type != "cuda":
         raise ValueError(f"vs_wv_counts: unsupported device {ref.device}")
-    h, w = ref.shape[-2:]
-    tensors = []
-    if need_vs:
-        for name, t in (("u", u), ("v", v)):
-            _check_plane(name, t, h, w)
-        tensors += [u, v]
-    if need_wv:
-        if (
-            data.dtype != torch.uint8
-            or data.shape != (3, h, w)
-            or data.stride()[1:] != (w, 1)
-        ):
-            raise ValueError(f"data must be (3, {h}, {w}) u8 with contiguous planes")
-        tensors.append(data)
-        if mask is not None:
-            _check_plane("mask", mask, h, w)
-            tensors.append(mask)
-    if rect is not None:
-        if rect.dtype != torch.int32 or rect.shape != (4,) or not rect.is_contiguous():
-            raise ValueError(f"rect must be a contiguous (4,) int32 tensor, got "
-                             f"{tuple(rect.shape)} {rect.dtype}")
-        if h * w >= 1 << 31:
-            raise ValueError("vs_wv_counts: a rect needs fewer than 2**31 pixels")
-        tensors.append(rect)
-    if any(t.device != ref.device for t in tensors):
-        raise ValueError("vs_wv_counts: inputs on different devices")
+    h, w = check_stats_inputs(u, v, data, mask, need_vs=need_vs, need_wv=need_wv, rect=rect)
     dev = ref.device
-    vs = torch.zeros((VS_SIZE, VS_SIZE), dtype=torch.int32, device=dev) if need_vs else None
-    wv = torch.empty((3, WV_SIZE, w), dtype=torch.int32, device=dev) if need_wv else None
+    plan = stats_plan(
+        h, w, vs_aligned=bool(need_vs and _aligned(u, v)),
+        wv_aligned=bool(need_wv and _aligned(data, mask) and data.stride(0) % 16 == 0),
+        need_vs=need_vs, need_wv=need_wv)
+    # both outputs are written in full by the kernels; an empty plane
+    # launches nothing and its vectorscope is zero
+    alloc = torch.empty if h * w else torch.zeros
+    vs = alloc((VS_SIZE, VS_SIZE), dtype=torch.int32, device=dev) if need_vs else None
+    wv = alloc((3, WV_SIZE, w), dtype=torch.int32, device=dev) if need_wv else None
+    # the clusters' vectorscope partials; a single cluster writes vs itself
+    partial = vs
+    if need_vs and plan.vs_clusters > 1:
+        partial = torch.empty((plan.vs_clusters, VS_SIZE * VS_SIZE), dtype=torch.int32,
+                              device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _kernels.library()
     with torch.cuda.device(dev):
         rc = lib.ocm_scope_stats(
+            ctypes.addressof(plan),
             ptr(u) if need_vs else None, ptr(v) if need_vs else None,
             ptr(data) if need_wv else None, data.stride(0) if need_wv else 0,
-            ptr(mask) if need_wv else None, ptr(rect), h, w, ptr(vs), ptr(wv),
+            ptr(mask) if need_wv else None, ptr(rect), h, w, ptr(vs), ptr(partial), ptr(wv),
             int(need_vs), int(need_wv), _kernels.stream_handle(dev),
         )
     vs_wv_counts.launches += 1
+    if (plan.vs_vec or not need_vs) and (plan.wv_vec or not need_wv):
+        vs_wv_counts.launches_vec += 1
     if rect is not None:
         vs_wv_counts.launches_rect += 1
     if not need_wv:
@@ -144,9 +232,10 @@ def vs_wv_counts(
     return vs, wv
 
 
-# every launch; of which with the vectorscope alone / the waveform alone /
-# a dynamic rect
+# every call; of which with the vectorscope alone / the waveform alone /
+# a dynamic rect / every count in the 16-byte load form
 vs_wv_counts.launches = 0
+vs_wv_counts.launches_vec = 0
 vs_wv_counts.launches_vs_only = 0
 vs_wv_counts.launches_wv_only = 0
 vs_wv_counts.launches_rect = 0

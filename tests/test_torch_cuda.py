@@ -271,3 +271,105 @@ def test_dynamic_dock_step_cuda_graph_replay(cuda):
         eager = step((y, uv), 2.0, torch.tensor(r, dtype=torch.int32, device=cuda)).to_numpy()
         for k, v in out.to_numpy().items():
             assert np.array_equal(v, eager[k]), (r, k)
+
+
+SHAPES = [(13, 17), (65, 144), (129, 131), (131, 133), (131, 270), (140, 270), (17, 33)]
+
+
+def _kind_frame(h, w, kind, seed):
+    import chip_smoke
+
+    return chip_smoke.make_frame(h, w, kind, seed)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("h,w", SHAPES)
+def test_k1_k2_bit_exact_over_shapes(cuda, h, w, packed):
+    """K1 at every scale the shape allows and K2 on its outputs, both
+    families, random / flat / bar frames: equal to the plain versions."""
+    n = 0
+    for scale in (1, 2, 3, 4, 8):
+        if h < scale or w < scale:
+            continue
+        for kind in ("random", "flat", "bars"):
+            n += 1
+            f = _kind_frame(h, w, kind, h * w + n)
+            arr = f.view(np.int32)[..., 0] if packed else np.moveaxis(f, -1, 0)
+            x = torch.from_numpy(np.ascontiguousarray(arr)).to(cuda)
+            for with_overlays in (True, False):
+                kw = dict(packed=packed, cs=1 + n % 2, scale=scale, with_overlays=with_overlays,
+                          **ARGS)
+                got = tp.frame_pass(x, 0.3 * n, **kw)
+                ref = tp.frame_pass_reference(x, 0.3 * n, **kw)
+                for a, b in zip(got, ref):
+                    assert (a is None and b is None) or torch.equal(a, b), (scale, kind)
+            for fam in (False, True):
+                inputs = tp.stats_inputs(*ref[:2], fam)
+                for a, b in zip(ss.vs_wv_counts(*inputs), ss.vs_wv_counts_reference(*inputs)):
+                    assert torch.equal(a, b), (scale, kind, fam)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (5, 40), (3, 2000), (7, 16), (1080, 1441)])
+def test_k2_small_and_unaligned_planes(cuda, h, w):
+    """Fewer rows than a waveform cluster has blocks, and planes whose starts
+    or rows are not 16-byte aligned: the kernel's plain-load form."""
+    f = _kind_frame(h, w, "random", h + w)
+    ds, yuv, *_ = tp.frame_pass_reference(torch.from_numpy(f.view(np.int32)[..., 0]).to(cuda),
+                                          packed=True, cs=2, scale=1, with_overlays=False)
+    for fam in (False, True):
+        inputs = tp.stats_inputs(ds, yuv, fam)
+        for need_vs, need_wv in ((True, True), (True, False), (False, True)):
+            kw = dict(need_vs=need_vs, need_wv=need_wv)
+            for a, b in zip(ss.vs_wv_counts(*inputs, **kw), ss.vs_wv_counts_reference(*inputs, **kw)):
+                assert (a is None and b is None) or torch.equal(a, b), (fam, need_vs, need_wv)
+
+
+def test_k2_unaligned_slices_of_one_allocation(cuda):
+    """u, v and the data planes sliced from one buffer at offsets that are
+    not multiples of 16, as stats_inputs passes yuv[1] and yuv[2]."""
+    rng = np.random.default_rng(21)
+    h, w = 64, 96
+    buf = torch.from_numpy(rng.integers(0, 256, 5 * h * w + 7, np.uint8)).to(cuda)
+    for off in (1, 3, 8, 16):
+        u = buf[off:off + h * w].view(h, w)
+        v = buf[off + h * w + 5:off + 2 * h * w + 5].view(h, w)
+        data = buf[off:off + 3 * h * w].view(3, h, w)
+        mask = buf[off + 2:off + 2 + h * w].view(h, w)
+        vec = ss.vs_wv_counts.launches_vec
+        got = ss.vs_wv_counts(u, v, data, mask)
+        # v and the mask start 5 and 2 bytes past a 16-byte boundary at
+        # best, so no call takes the cp.async form for both counts
+        assert ss.vs_wv_counts.launches_vec == vec
+        for a, b in zip(got, ss.vs_wv_counts_reference(u, v, data, mask)):
+            assert torch.equal(a, b), off
+
+
+def test_k2_every_rect_case(cuda):
+    import chip_smoke
+
+    for h, w in ((1080, 1920), (131, 270), (13, 17)):
+        f = _kind_frame(h, w, "bars", 7)
+        ds, yuv, *_ = tp.frame_pass_reference(
+            torch.from_numpy(f.view(np.int32)[..., 0]).to(cuda), packed=True, cs=2, scale=1,
+            with_overlays=False)
+        for r in chip_smoke.rect_cases(h, w):
+            rect = torch.tensor(r, dtype=torch.int32, device=cuda)
+            for fam in (False, True):
+                inputs = tp.stats_inputs(ds, yuv, fam)
+                for need_vs, need_wv in ((True, True), (True, False), (False, True)):
+                    kw = dict(need_vs=need_vs, need_wv=need_wv, rect=rect)
+                    for a, b in zip(ss.vs_wv_counts(*inputs, **kw),
+                                    ss.vs_wv_counts_reference(*inputs, **kw)):
+                        assert (a is None and b is None) or torch.equal(a, b), (h, w, r, fam)
+
+
+def test_fast_forms_taken_at_main_path_shapes(cuda):
+    """At 3840x2160 scale 2 K1 takes the wide-load form, and K2 on its
+    1920x1080 outputs the cp.async form for both counts."""
+    x = torch.from_numpy(_kind_frame(2160, 3840, "random", 1).view(np.int32)[..., 0]).to(cuda)
+    k1 = tp.frame_pass.launches_vec
+    ds, yuv, *_ = tp.frame_pass(x, 1.0, packed=True, cs=2, scale=2, **ARGS)
+    assert tp.frame_pass.launches_vec == k1 + 1
+    k2 = ss.vs_wv_counts.launches_vec
+    ss.vs_wv_counts(*tp.stats_inputs(ds, yuv, False))
+    assert ss.vs_wv_counts.launches_vec == k2 + 1

@@ -17,7 +17,10 @@ any failure raises and the exit code is non-zero:
    planar input, random / flat-grey / colour-bar frames with alpha-0
    regions; K4 and K5 (NV12 / P010 decode) at 4K and small shapes, every
    depth; K3 (the three overlays) at 4K, 1080p and odd shapes, planar and
-   packed output, with and without a rect; K2's vectorscope alone (K7),
+   packed output, with and without a rect, on planes whose width is a
+   multiple of 4 but not of 16, or not of 4, and on planes whose base is
+   not 16-byte aligned, with all three outputs and each alone, in every
+   form also with a rect tensor; K2's vectorscope alone (K7),
    waveform alone (K8) and both (K6) on cropped planes; K2 in its three
    modes and K3 with a dynamic rect (a (4,) int32 tensor on the card) at
    1920x1080 and odd shapes, over rects inside, full, one pixel, empty,
@@ -42,16 +45,18 @@ any failure raises and the exit code is non-zero:
    rect tensor overwritten in place; the streaming ``models.Dock`` on 6
    4K NV12 frames with a move-drag on its ROI band, against a CPU Dock fed
    the same frames and mouse events; one 270x480 frame against the golden
-   model.  On every path K1 and K2 must also have taken their fast forms
-   (16-byte loads, cp.async stages) on every call (the ``K1 vec`` / ``K2
-   vec`` counts);
+   model.  On every path K1, K2 and K3 must also have taken their fast
+   forms (16-byte loads, cp.async stages) on every call (the ``K1 vec`` /
+   ``K2 vec`` / ``K3 vec`` counts), and the streaming Dock must launch K3
+   exactly once per frame, settled or moving;
 5. timing with CUDA events (warm-up, then the median of 25 runs of 10
    back-to-back calls): the 4K full step, the 4K NV12 dock step, its
    dynamic-ROI form eagerly and as a CUDA graph replay, per frame; each
    kernel beside its plain version and, where one exists, the one PyTorch
    call that computes the same function (K2 and K3 also in rect mode, K2
    also on a flat frame, K1 as its overlay+scale pass and its scale-only
-   pass, each with its bound); then each kernel's device time alone, from
+   pass, K3 also with one output and with a cold L2, each with its bound);
+   then each kernel's device time alone, from
    torch.profiler: the sum of its kernels' durations and its span (first
    start to last end: K2's two counts overlap);
 6. a torch.profiler window over 10 full steps, 10 NV12 and 10 P010 dock
@@ -258,8 +263,34 @@ def overlay_cases():
     return cases
 
 
+def overlay_form_cases(device):
+    """K3 inputs in each of its forms: (case, planes).  Widths that are a
+    multiple of 16 (the 16-byte copies), of 4 but not 16 (plain loads, word
+    stores), and of neither (byte stores); and contiguous (4, H, W) views of
+    one buffer at storage offsets 1 and 5, whose base is not 16-byte
+    aligned."""
+    import torch
+
+    rng = np.random.default_rng(41)
+    for h, w in ((68, 144), (68, 132), (70, 130), (33, 17)):
+        buf = torch.from_numpy(rng.integers(0, 256, 4 * h * w + 16, np.uint8)).to(device)
+        buf[3 * h * w + 1:4 * h * w + 5:7] = 0  # some alpha-0 pixels
+        for off in (0, 1, 5):
+            if off and w % 16:
+                continue
+            yield f"{h}x{w} at +{off}", buf[off:off + 4 * h * w].view(4, h, w)
+
+
+OUTPUT_SETS = ((True, True, True), (True, False, False), (False, True, False),
+               (False, False, True))
+
+
 def phase_overlays(device, err: dict) -> None:
-    """K3 vs its plain version."""
+    """K3 vs its plain version: :func:`overlay_cases`, then every form of
+    :func:`overlay_form_cases` with each output alone and all three, planar
+    and packed, without and with a rect tensor."""
+    import torch
+
     from obs_color_monitor_tpu_torch.ops import fused_overlays as fo
 
     for n, (h, w, kind, packed_out, rect, zb_cs, fc_cs, outputs, tm) in enumerate(
@@ -271,6 +302,16 @@ def phase_overlays(device, err: dict) -> None:
                     f"cs {zb_cs}/{fc_cs} outputs={outputs}",
                     fo.fused_overlays_planes(x, tm, **kw),
                     fo.fused_overlays_reference(x, tm, **kw), err)
+    for case, x in overlay_form_cases(device):
+        h, w = x.shape[1:]
+        for r in (None, (w // 5, h // 4, w - 3, h - 2), (0, 0, w // 2, h)):
+            rect = None if r is None else torch.tensor(r, dtype=torch.int32, device=device)
+            for outputs in OUTPUT_SETS:
+                for packed_out in (False, True):
+                    kw = dict(OV_ARGS, rect=rect, packed_out=packed_out, outputs=outputs)
+                    check_equal("K3", f"{case} rect={r} packed_out={packed_out} "
+                                f"outputs={outputs}", fo.fused_overlays_planes(x, 2.9, **kw),
+                                fo.fused_overlays_reference(x, 2.9, **kw), err)
 
 
 def phase_stats_modes(device, err: dict) -> None:
@@ -432,6 +473,7 @@ def read_counts() -> dict:
         "K8": vs.launches_wv_only,
         "K2 rect": vs.launches_rect,
         "K3": fused_overlays.fused_overlays_planes.launches,
+        "K3 vec": fused_overlays.fused_overlays_planes.launches_vec,
         "K3 rect": fused_overlays.fused_overlays_planes.launches_rect,
         "K4": decode.nv12_decode.launches,
         "K5": decode.nv12_16_decode.launches,
@@ -446,7 +488,7 @@ def reset_counts() -> None:
     vs.launches = vs.launches_vs_only = vs.launches_wv_only = vs.launches_rect = 0
     vs.launches_vec = 0
     fo = fused_overlays.fused_overlays_planes
-    fo.launches = fo.launches_rect = 0
+    fo.launches = fo.launches_rect = fo.launches_vec = 0
     decode.nv12_decode.launches = decode.nv12_16_decode.launches = 0
 
 
@@ -500,8 +542,9 @@ def path_counts(name: str, counts: dict, needs: tuple, device, both_as: str = "K
     if device.type == "cuda" and missing:
         raise AssertionError(f"path {name} did not launch {missing}: {counts}")
     k2 = counts[both_as] + counts["K7"] + counts["K8"]
-    if device.type == "cuda" and (counts["K1 vec"], counts["K2 vec"]) != (counts["K1"], k2):
-        raise AssertionError(f"path {name}: K1 or K2 left its fast form: {counts}")
+    fast = (counts["K1 vec"], counts["K2 vec"], counts["K3 vec"])
+    if device.type == "cuda" and fast != (counts["K1"], k2, counts["K3"]):
+        raise AssertionError(f"path {name}: K1, K2 or K3 left its fast form: {counts}")
     return counts
 
 
@@ -651,12 +694,19 @@ def phase_stream_dock(device, h=H4K, w=W4K, roi=ROI, frames=DRAG_FRAMES) -> dict
 
     reset_counts()
     for i, (y, uv) in enumerate(host):
-        panels = []
+        panels, k3 = [], []
         for d in docks:
             events(d, i)
+            before = read_counts()["K3"]
             d.push_nv12(y, uv)
             panels.append(d.render())
+            k3.append(read_counts()["K3"] - before)
         card, cpu = docks
+        # the card's Dock computes its overlays in one K3 launch per frame,
+        # settled (the shared launch) or moving (the dynamic step's); the
+        # CPU Dock runs the plain version, uncounted
+        if device.type == "cuda" and k3[0] != 1:
+            raise AssertionError(f"path {name} frame {i}: {k3[0]} K3 launches, expected 1")
         if not np.array_equal(*panels):
             raise AssertionError(f"path {name} frame {i}: the panel differs from the CPU Dock's")
         if not (np.array_equal(card.vectorscope._read().cpu().numpy(),
@@ -664,8 +714,8 @@ def phase_stream_dock(device, h=H4K, w=W4K, roi=ROI, frames=DRAG_FRAMES) -> dict
                 and np.array_equal(card.histogram.counts(), cpu.histogram.counts())):
             raise AssertionError(f"path {name} frame {i}: published statistics differ")
         print(f"path {name} frame {i}: rect {card.hub.config.resolve_rect(w // 2, h // 2)}, "
-              f"dynamic {card.hub.last_surface.dynamic_rect is not None}: panel, vectorscope "
-              "and histogram equal to the CPU Dock's", flush=True)
+              f"dynamic {card.hub.last_surface.dynamic_rect is not None}, {k3[0]} K3 launch: "
+              "panel, vectorscope and histogram equal to the CPU Dock's", flush=True)
     counts = path_counts(name, read_counts(), ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect"),
                          device)
     return {name: counts}
@@ -767,6 +817,29 @@ def time_ms(fns: dict, reps=TIMING_REPS, inner=10, warmup=3) -> dict:
             end.record()
             end.synchronize()
             times[k].append(start.elapsed_time(end) / inner)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def cold_ms(fns: dict, reps: int = 15, flush_bytes: int = 256 << 20) -> dict:
+    """ms per call of each function with a cold L2: before each call a
+    ``flush_bytes`` buffer (five times the H100's 50 MB L2) is written, then
+    CUDA events around the call alone; the median of ``reps``.  The write
+    runs long enough on the card that the call is queued behind it, so the
+    host's launch time is not in the interval."""
+    import torch
+
+    buf = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    times = {k: [] for k in fns}
+    for r in range(reps):
+        for k, fn in fns.items():
+            buf.fill_(r & 255)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -898,6 +971,11 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     fns["k3"] = lambda: fo.fused_overlays_planes(cap, 1.0, **k3kw)
     fns["k3_plain"] = lambda: fo.fused_overlays_reference(cap, 1.0, **k3kw)
     bounds["K3"] = bound(h * w * (4 + 12), h * w * 60)
+    # one output (the per-scope route): focus peaking alone
+    fp_only = dict(k3kw, outputs=(False, False, True))
+    fns["k3_fp"] = lambda: fo.fused_overlays_planes(cap, 1.0, **fp_only)
+    fns["k3_fp_plain"] = lambda: fo.fused_overlays_reference(cap, 1.0, **fp_only)
+    bounds["K3 one output"] = bound(h * w * (4 + 4), h * w * 25)
     # and at full resolution (the dock with overlays_on_capture=False)
     full = as_input(make_frame(H4K, W4K, "random", 4), False, device)
     fns["k3_fullres"] = lambda: fo.fused_overlays_planes(full, 1.0, **k3kw)
@@ -960,6 +1038,12 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     t = time_ms(fns)
     for k, v in t.items():
         print(f"time {k}: {v:.4f} ms  [{card}]", flush=True)
+    # K3's shapes once more with the L2 flushed before each call: the 1080p
+    # capture and its outputs (33 MB) fit the 50 MB L2, so a replay loop can
+    # read them below the HBM bound
+    for k, v in cold_ms({k: fns[k] for k in ("k3", "k3_fullres", "k3_rect", "k3_fp")}).items():
+        t[k + "_cold"] = v
+        print(f"cold time {k}: {v:.4f} ms  [{card}]", flush=True)
     kernels = {k: fn for k, fn in fns.items() if k.startswith("k") and "plain" not in k}
     dev = device_ms(kernels, card)
     # the kernels' own calls (not the library's: bincount reads its maximum
@@ -1131,7 +1215,7 @@ KERNELS = [  # id, wrapper, source, TPU kernel it replaces, timing key, library 
 # K9 runs the kernels of two sources; K2 and K3 also run with a dynamic rect
 SOURCES = {"K9": ("frame_pipeline.cu", "scope_stats.cu")}
 # the wrapper counts of calls in the fast form (K9's are its two wrappers')
-FAST = {"K1": ("K1 vec",), "K2": ("K2 vec",), "K9": ("K9 vec",)}
+FAST = {"K1": ("K1 vec",), "K2": ("K2 vec",), "K3": ("K3 vec",), "K9": ("K9 vec",)}
 RECT_MODE = {"K2": ("k2_rect", "k2_rect_library"), "K3": ("k3_rect", None)}
 
 
@@ -1169,6 +1253,16 @@ def kernel_line(launches: dict, by_path: dict, err: dict, t: dict, bounds: dict,
                 "scale_only_device_ms": dev["k1_scale_random"][0],
                 "scale_only_graph_ms": dev["k1_scale_random"][2],
                 "scale_only_bound_ms": bounds["K1 scale"][0],
+            })
+        if kid == "K3":
+            entry.update({
+                "cold_ms": t["k3_cold"], "fullres_ms": t["k3_fullres"],
+                "fullres_device_ms": dev["k3_fullres"][0], "fullres_graph_ms": dev["k3_fullres"][2],
+                "fullres_cold_ms": t["k3_fullres_cold"], "fullres_bound_ms": bounds["K3 full-res"][0],
+                "rect_cold_ms": t["k3_rect_cold"],
+                "one_output_ms": t["k3_fp"], "one_output_graph_ms": dev["k3_fp"][2],
+                "one_output_cold_ms": t["k3_fp_cold"],
+                "one_output_bound_ms": bounds["K3 one output"][0],
             })
         if kid == "K2":
             entry.update({"flat_ms": t["k2_flat"], "flat_device_ms": dev["k2_flat"][0],

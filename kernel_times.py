@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of kernels K1 and K2 at the main paths' shapes, for
+"""Device times of kernels K1, K2 and K3 at the main paths' shapes, for
 comparing checkouts of the repository on one CUDA card.
 
     python3 kernel_times.py [CHECKOUT ...]
@@ -17,7 +17,12 @@ the 1920x1080 capture of a random and a flat 4K frame, both counts
 (``k2_random``, ``k2_flat``), with the ROI rect (``k2_rect``), each count
 alone (``k2_vs``, ``k2_wv``), and each alone with an empty rect, which
 counts nothing and leaves the fixed costs (``k2_vs_empty``,
-``k2_wv_empty``).  Needs a CUDA card.
+``k2_wv_empty``); K3 with packed output on that capture, all three
+overlays (``k3``), with the ROI rect (``k3_rect``) and focus peaking alone
+(``k3_fp``), and on the 4K frame (``k3_fullres``).  The K3 keys are also
+timed once per call with a cold L2 (``cold time``: a 256 MiB buffer
+written before each call, CUDA events around the call alone).  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ def inner(root: str) -> None:
     sys.path.insert(0, root)
     import torch
 
+    from obs_color_monitor_tpu_torch.ops import fused_overlays as fo
     from obs_color_monitor_tpu_torch.ops import pipeline as pl
     from obs_color_monitor_tpu_torch.ops import scope_stats as ss
 
@@ -58,10 +64,23 @@ def inner(root: str) -> None:
             fns["k2_wv"] = lambda i=i: ss.vs_wv_counts(*i, need_vs=False)
             fns["k2_vs_empty"] = lambda i=i: ss.vs_wv_counts(*i, need_wv=False, rect=empty)
             fns["k2_wv_empty"] = lambda i=i: ss.vs_wv_counts(*i, need_vs=False, rect=empty)
+    cap = pl.frame_pass_reference(x, 1.0, **dict(kw, with_overlays=False))[0]
+    full = cs.as_input(cs.make_frame(cs.H4K, cs.W4K, "random", 4), False, dev)
+    k3kw = dict(cs.OV_ARGS, packed_out=True)
+    k3 = {
+        "k3": lambda: fo.fused_overlays_planes(cap, 1.0, **k3kw),
+        "k3_rect": lambda: fo.fused_overlays_planes(cap, 1.0, rect=roi, **k3kw),
+        "k3_fp": lambda: fo.fused_overlays_planes(cap, 1.0, outputs=(False, False, True),
+                                                  **k3kw),
+        "k3_fullres": lambda: fo.fused_overlays_planes(full, 1.0, **k3kw),
+    }
+    fns.update(k3)
     for k, v in cs.time_ms(fns).items():
         print(f"time {k}: {v:.4f} ms", flush=True)
     for k, v in cs.graph_ms(fns).items():
         print(f"graph time {k}: {v:.4f} ms", flush=True)
+    for k, v in cs.cold_ms(k3).items():
+        print(f"cold time {k}: {v:.4f} ms", flush=True)
     cs.device_ms(fns, card)
 
 

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "ocm_frame_pass": [_VP, _VP, _VP, ctypes.c_float, _VP, _VP, _VP, _VP, _VP, _VP],
     "ocm_scope_stats": [_VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _I, _I, _VP, _VP, _VP,
                         _I, _I, _VP],
-    "ocm_fused_overlays": [_VP, _VP, ctypes.c_float, _VP, _I, _VP, _VP, _VP, _VP],
+    "ocm_fused_overlays": [_VP, _VP, _VP, ctypes.c_float, _VP, _VP, _VP, _VP, _VP, _VP],
     "ocm_nv12_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP],
     "ocm_nv12_16_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],
 }
@@ -140,7 +140,13 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_handle(device) -> int:
-    """PyTorch's current stream on ``device``, as the raw cudaStream_t."""
+    """PyTorch's current stream on ``device``, as the raw cudaStream_t
+    (read without building a ``torch.cuda.Stream`` where the build has the
+    raw accessor: a wrapper's host time counts on host-bound steps)."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+

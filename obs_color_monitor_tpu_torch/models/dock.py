@@ -45,7 +45,7 @@ from ..ops.convert import OPAQUE_BLACK, host_packed_view, nv12_device_planes, pl
 from ..ops.fused import AnalysisResult
 from .base import CaptureHub, Needs, Scope, SurfaceData
 from .histogram import Histogram
-from .overlays import FalseColor, FocusPeaking, Zebra
+from .overlays import FalseColor, FocusPeaking, Zebra, shared_overlay_images
 from .roi_interact import DRAG_FIRST, DRAG_MOVE, DRAG_RESIZE, InteractiveROI
 from .vectorscope import Vectorscope
 from .waveform import Waveform
@@ -298,8 +298,11 @@ class Dock:
         patches = []
         all_shown = True
         y0 = 0
+        # the overlay scopes on the same planes take one K3 launch together
+        shared = shared_overlay_images([self.scopes[n] for n in shown])
         for k, name in enumerate(shown):
-            img = self.scopes[name].render_image()
+            scope = self.scopes[name]
+            img = shared[scope] if scope in shared else scope.render_image()
             h_slot = (cy - y0) // (len(shown) - k)
             if img is None:
                 all_shown = False

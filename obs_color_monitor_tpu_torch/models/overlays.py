@@ -5,9 +5,11 @@ Counterpart of ``obs_color_monitor_tpu/models/overlays.py``: each is a
 *source* that captures through a hub (the scaled frame, reference
 zbs_render src/zebra.c:599-628), and ``apply_planes`` applies it to a
 caller's planes as the reference's filter does (zbf_render
-src/zebra.c:630-658).  Each overlay runs as kernel K3
-(``ops.fused_overlays``) with its one output switched on; the user-LUT
-false colour stays torch ops, as in JAX.
+src/zebra.c:630-658).  The overlays run as kernel K3
+(``ops.fused_overlays``): a scope on its own switches on its one output,
+and :func:`shared_overlay_images` serves the shown scopes that read the
+same planes with one launch (the Dock's settled route).  The user-LUT false
+colour stays torch ops, as in JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ def _rgba_of_packed(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint8).view(x.shape[0], x.shape[1], 4)
 
 
+# K3's arguments for an output that is switched off: any valid values
+_K3_IDLE = dict(th_low=0.75, th_high=1.0, zb_cs=2, fc_cs=2, peak_th=0, peak_rgba=(0, 0, 0, 0))
+
+
 class _OverlayScope(Scope, StandaloneScopeMixin):
     """Shared source-flavour plumbing: capture the scaled frame, overlay at
     render time.  ``_which`` is the overlay's output of K3 (0 zebra, 1 false
@@ -57,9 +63,12 @@ class _OverlayScope(Scope, StandaloneScopeMixin):
         self._publish((surface.result.planes, surface.colorspace))
 
     def _k3_args(self, cs) -> dict:
-        """K3's arguments for this overlay; the others' are placeholders."""
-        return dict(th_low=0.75, th_high=1.0, zb_cs=int(cs), fc_cs=int(cs), peak_th=0,
-                    peak_rgba=(0, 0, 0, 0))
+        """K3's arguments that belong to this overlay, in colorspace ``cs``."""
+        raise NotImplementedError
+
+    def _takes_k3(self) -> bool:
+        """Whether ``render_image`` is this overlay's K3 output as it is."""
+        return True
 
     def _k3(self, planes, cs=None, packed_out=False):
         """This overlay of (4, H, W) u8 planes through K3, in the scope's own
@@ -69,7 +78,7 @@ class _OverlayScope(Scope, StandaloneScopeMixin):
         outputs = tuple(i == self._which for i in range(3))
         return fused_overlays_planes(planes.contiguous(), getattr(self, "tm", 0.0),
                                      packed_out=packed_out, outputs=outputs,
-                                     **self._k3_args(cs))[self._which]
+                                     **dict(_K3_IDLE, **self._k3_args(cs)))[self._which]
 
     def apply_planes(self, planes, cs=None):
         """Filter flavour on planes: (4, H, W) u8 in, (4, H, W) u8 out."""
@@ -104,7 +113,7 @@ class Zebra(_OverlayScope):
         self.tm = zebra_tm_advance(self.tm, seconds)
 
     def _k3_args(self, cs) -> dict:
-        return dict(super()._k3_args(cs), th_low=self.config.th_low, th_high=self.config.th_high)
+        return dict(th_low=self.config.th_low, th_high=self.config.th_high, zb_cs=int(cs))
 
 
 class FalseColor(_OverlayScope):
@@ -115,6 +124,13 @@ class FalseColor(_OverlayScope):
 
     def __init__(self, config: Optional[FalseColorConfig] = None, device="cuda"):
         super().__init__(config or FalseColorConfig(), device)
+
+    def _k3_args(self, cs) -> dict:
+        return dict(fc_cs=int(cs))
+
+    def _takes_k3(self) -> bool:
+        cfg = self.config
+        return not (cfg.use_lut and cfg.lut is not None) and cfg.show_key == ShowKey.NONE
 
     @staticmethod
     def lut_fingerprint(lut) -> tuple:
@@ -150,8 +166,7 @@ class FalseColor(_OverlayScope):
         return out
 
     def render_image(self):
-        cfg = self.config
-        if (cfg.use_lut and cfg.lut is not None) or cfg.show_key != ShowKey.NONE:
+        if not self._takes_k3():
             v = self._read()
             return None if v is None else planes_to_rgba(self.apply_planes(v[0]))
         return super().render_image()
@@ -178,5 +193,37 @@ class FocusPeaking(_OverlayScope):
     def _k3_args(self, cs) -> dict:
         cfg = self.config
         rgba = tuple(int(c) for c in quantize_unorm8(np.asarray(cfg.peaking_rgba, np.float32)))
-        return dict(super()._k3_args(cs), peak_th=peaking_threshold_fixed(cfg.peaking_threshold),
-                    peak_rgba=rgba)
+        return dict(peak_th=peaking_threshold_fixed(cfg.peaking_threshold), peak_rgba=rgba)
+
+
+def shared_overlay_images(scopes) -> dict:
+    """``render_image`` of several overlay scopes from one K3 launch: the
+    scopes that take K3 as they are (not a user-LUT false colour, not one
+    with a key legend), are not bypassed and read the same published planes
+    tensor share one launch with each one's output switched on and its own
+    arguments (Zebra's thresholds, colorspace and clock, FalseColor's
+    colorspace, FocusPeaking's threshold and colour).  Returns {scope: its
+    image}, equal to what its ``render_image`` would return, for the scopes
+    so served; a scope left out (alone on its planes, or any other case)
+    renders on its own route."""
+    groups: dict[int, tuple] = {}
+    for s in scopes:
+        if not isinstance(s, _OverlayScope) or not s._takes_k3() or s.config.bypass:
+            continue
+        v = s._read()
+        if v is not None:
+            members = groups.setdefault(id(v[0]), (v[0], {}))[1]
+            members.setdefault(s._which, s)  # a second scope of a kind renders alone
+    images = {}
+    for planes, members in groups.values():
+        if len(members) < 2:
+            continue
+        kw, tm = dict(_K3_IDLE), 0.0
+        for s in members.values():
+            kw.update(s._k3_args(s.colorspace))
+            tm = getattr(s, "tm", tm)
+        outputs = tuple(i in members for i in range(3))
+        outs = fused_overlays_planes(planes.contiguous(), tm, packed_out=True, outputs=outputs,
+                                     **kw)
+        images.update((s, _rgba_of_packed(outs[i])) for i, s in members.items())
+    return images

@@ -3,9 +3,10 @@
 // clamps it (obs_color_monitor_tpu/dock_step.py:495-498, and the Pallas
 // kernels' SMEM rect, ops/pallas_overlays.py:271-279):
 //   x0 = clip(x0, 0, w), x1 = clip(x1, x0, w), and the same for y,
-// so a negative or reversed x1 gives an empty rect.  Every thread reads the
-// four words itself (they stay in L1), so a new rect changes no launch
-// shape and the host never reads it.
+// so a negative or reversed x1 gives an empty rect.  The kernels read the
+// four words on the device (K2 in every thread, where they stay in L1; K3
+// once per block), so a new rect changes no launch shape and the host never
+// reads it.
 #pragma once
 
 struct DynRect {

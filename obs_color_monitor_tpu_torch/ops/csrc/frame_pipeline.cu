@@ -21,7 +21,8 @@
 //   * tile launch (with overlays): a block of 256 threads owns a 16 x 256
 //     pixel tile and copies it with its 1-pixel halo into shared memory
 //     (16-byte cp.async chunks when the rows are 16-byte aligned, else one
-//     plain load per pixel or byte).  Each thread computes runs of 4
+//     plain load per pixel or byte; tile_pass.cuh, which K3 shares).
+//     Each thread computes runs of 4
 //     consecutive pixels of a row from shared memory with overlay_math's
 //     per-pixel function and stores each of the 12 output byte planes as
 //     one 4-byte word, so a warp writes whole 128-byte lines; the
@@ -39,6 +40,7 @@
 #include <cstdint>
 
 #include "overlay_math.cuh"
+#include "tile_pass.cuh"
 
 // Mirrors obs_color_monitor_tpu_torch/ops/pipeline.py::PassParams.
 struct PassParams {
@@ -55,48 +57,10 @@ struct PassParams {
 
 namespace {
 
-constexpr int TW = 256, TH = 16;  // tile: columns x rows of the full-res frame
-constexpr int TILE_THREADS = 256;
-constexpr int RUN = 4;            // consecutive pixels per thread and store
-constexpr int SROWS = TH + 2;     // tile rows with the halo row above and below
-constexpr int PK_PAD = 4;         // packed halo: one 16-byte chunk (4 px) each side
-constexpr int PK_COLS = TW + 2 * PK_PAD;
-constexpr int PL_PAD = 16;        // planar halo: one 16-byte chunk each side
-constexpr int PL_COLS = TW + 2 * PL_PAD;
-constexpr size_t PK_SMEM = (size_t)SROWS * PK_COLS * 4;
-constexpr size_t PL_SMEM = (size_t)4 * SROWS * PL_COLS;
+using K1Tile = TileShape<256, 16, 256>;  // 16 x 256 pixels, 256 threads
+constexpr int TW = K1Tile::TW, TH = K1Tile::TH;
+constexpr int TILE_THREADS = K1Tile::THREADS;
 constexpr int SC_BX = 32, SC_BY = 8;  // scale launch block; a thread makes RUN outputs
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void unpack(uint32_t v, int out[4]) {
-  out[0] = v & 255;
-  out[1] = (v >> 8) & 255;
-  out[2] = (v >> 16) & 255;
-  out[3] = v >> 24;
-}
-
-// One byte plane's RUN outputs from (x, y) on, packed in a word (byte j =
-// pixel x + j): one 4-byte store when the run is whole and its address
-// 4-byte aligned (row width % 4 == 0), else byte by byte.
-__device__ __forceinline__ void store_run(uint8_t* __restrict__ plane, int width, int x, int y,
-                                          uint32_t packed, bool word) {
-  uint8_t* dst = plane + (size_t)y * width + x;
-  if (word) {
-    *reinterpret_cast<uint32_t*>(dst) = packed;
-  } else {
-#pragma unroll
-    for (int j = 0; j < RUN; ++j)
-      if (x + j < width) dst[j] = (uint8_t)(packed >> (8 * j));
-  }
-}
 
 // The scaled planes and their Q12 YUV of RUN output pixels from (ox, oy).
 __device__ __forceinline__ void store_scaled(const PassParams& p, uint8_t* __restrict__ ds,
@@ -126,90 +90,8 @@ __device__ __forceinline__ void store_scaled(const PassParams& p, uint8_t* __res
 }
 
 // ---- tile launch: overlays, and at scale 2 the scaled planes ----
-
-// The tile with its halo into shared memory.  Packed: s32[r][c] = pixel
-// (y0 - 1 + r, x0 - PK_PAD + c); planar: s8[ch][r][c] = plane ch at
-// (y0 - 1 + r, x0 - PL_PAD + c).  Cells outside the frame stay unwritten;
-// the overlay math never reads them (its neighbour flags are off there).
-template <bool PACKED, bool VEC>
-__device__ __forceinline__ void load_tile(const void* __restrict__ frame, int H, int W, int x0,
-                                          int y0, void* smem) {
-  if (PACKED) {
-    const uint32_t* f = (const uint32_t*)frame;
-    uint32_t* s = (uint32_t*)smem;
-    if (VEC) {  // W % 4 == 0: a 4-pixel chunk lies wholly inside or outside
-      constexpr int CH = PK_COLS / 4;
-      for (int k = threadIdx.x; k < SROWS * CH; k += TILE_THREADS) {
-        const int r = k / CH, c = (k - r * CH) * 4;
-        const int y = y0 - 1 + r, x = x0 - PK_PAD + c;
-        if (y >= 0 && y < H && x >= 0 && x < W) cp_async16(s + r * PK_COLS + c, f + (size_t)y * W + x);
-      }
-      cp_async_wait_all();
-    } else {
-      for (int k = threadIdx.x; k < SROWS * PK_COLS; k += TILE_THREADS) {
-        const int r = k / PK_COLS, c = k - r * PK_COLS;
-        const int y = y0 - 1 + r, x = x0 - PK_PAD + c;
-        if (y >= 0 && y < H && x >= 0 && x < W) s[k] = __ldg(f + (size_t)y * W + x);
-      }
-    }
-  } else {
-    const uint8_t* f = (const uint8_t*)frame;
-    uint8_t* s = (uint8_t*)smem;
-    const size_t plane = (size_t)H * W;
-    if (VEC) {  // W % 16 == 0
-      constexpr int CH = PL_COLS / 16;
-      for (int k = threadIdx.x; k < 4 * SROWS * CH; k += TILE_THREADS) {
-        const int pr = k / CH, c = (k - pr * CH) * 16;  // pr = plane * SROWS + row
-        const int ch = pr / SROWS, r = pr - ch * SROWS;
-        const int y = y0 - 1 + r, x = x0 - PL_PAD + c;
-        if (y >= 0 && y < H && x >= 0 && x < W)
-          cp_async16(s + pr * PL_COLS + c, f + ch * plane + (size_t)y * W + x);
-      }
-      cp_async_wait_all();
-    } else {
-      for (int k = threadIdx.x; k < 4 * SROWS * PL_COLS; k += TILE_THREADS) {
-        const int pr = k / PL_COLS, c = k - pr * PL_COLS;
-        const int ch = pr / SROWS, r = pr - ch * SROWS;
-        const int y = y0 - 1 + r, x = x0 - PL_PAD + c;
-        if (y >= 0 && y < H && x >= 0 && x < W) s[k] = __ldg(f + ch * plane + (size_t)y * W + x);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// RUN pixels of tile row r (smem row, halo included) from tile column c:
-// out[1 + j] = pixel c + j, out[0] / out[RUN + 1] its left / right
-// neighbours (with_sides), as (R, G, B, A).
-template <bool PACKED>
-__device__ __forceinline__ void read_run(const void* smem, int r, int c, int out[RUN + 2][4],
-                                         bool with_sides) {
-  if (PACKED) {
-    const uint32_t* s = (const uint32_t*)smem + r * PK_COLS + PK_PAD + c;
-    const uint4 q = *reinterpret_cast<const uint4*>(s);
-    unpack(q.x, out[1]);
-    unpack(q.y, out[2]);
-    unpack(q.z, out[3]);
-    unpack(q.w, out[4]);
-    if (with_sides) {
-      unpack(s[-1], out[0]);
-      unpack(s[RUN], out[RUN + 1]);
-    }
-  } else {
-    const uint8_t* s = (const uint8_t*)smem + r * PL_COLS + PL_PAD + c;
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) {
-      const uint8_t* sp = s + ch * SROWS * PL_COLS;
-      const uint32_t q = *reinterpret_cast<const uint32_t*>(sp);
-#pragma unroll
-      for (int j = 0; j < RUN; ++j) out[1 + j][ch] = (q >> (8 * j)) & 255;
-      if (with_sides) {
-        out[0][ch] = sp[-1];
-        out[RUN + 1][ch] = sp[RUN];
-      }
-    }
-  }
-}
+// (the tile with its halo in shared memory: tile_pass.cuh's load_tile and
+// read_run)
 
 // 4 blocks per SM: at most 64 registers a thread (a few bytes spill; still
 // faster than 3 blocks of 80 registers, which spill none)
@@ -223,7 +105,7 @@ tile_kernel(const void* __restrict__ frame, const OverlayParams op, const PassPa
   const int H = p.h4, W = p.w4;
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   if (threadIdx.x < 12) fc_table[threadIdx.x] = fc_color_word(op, threadIdx.x);
-  load_tile<PACKED, VEC>(frame, H, W, x0, y0, smem);  // ends with a barrier
+  load_tile<K1Tile, PACKED, VEC>(frame, H, W, x0, y0, smem);  // ends with a barrier
 
   // overlays: a thread takes runs at column cx of rows ty, ty + 4, ...
   const int cx = (threadIdx.x & 63) * RUN, ty = threadIdx.x >> 6;
@@ -234,9 +116,9 @@ tile_kernel(const void* __restrict__ frame, const OverlayParams op, const PassPa
     const int x = x0 + cx, y = y0 + ry;
     if (x >= W || y >= H) continue;
     int row[RUN + 2][4], up[RUN + 2][4], dn[RUN + 2][4];
-    read_run<PACKED>(smem, ry + 1, cx, row, true);
-    read_run<PACKED>(smem, ry, cx, up, false);
-    read_run<PACKED>(smem, ry + 2, cx, dn, false);
+    read_run<K1Tile, PACKED>(smem, ry + 1, cx, row, true);
+    read_run<K1Tile, PACKED>(smem, ry, cx, up, false);
+    read_run<K1Tile, PACKED>(smem, ry + 2, cx, dn, false);
     // each plane's RUN output bytes packed into one word as they come
     uint32_t z[4] = {0, 0, 0, 0}, f[4] = {0, 0, 0, 0}, k[4] = {0, 0, 0, 0};
 #pragma unroll
@@ -272,8 +154,8 @@ tile_kernel(const void* __restrict__ frame, const OverlayParams op, const PassPa
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         int a[RUN + 2][4], b[RUN + 2][4];
-        read_run<PACKED>(smem, 2 * ory + r + 1, 2 * ocx, a, false);
-        read_run<PACKED>(smem, 2 * ory + r + 1, 2 * ocx + RUN, b, false);
+        read_run<K1Tile, PACKED>(smem, 2 * ory + r + 1, 2 * ocx, a, false);
+        read_run<K1Tile, PACKED>(smem, 2 * ory + r + 1, 2 * ocx + RUN, b, false);
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch) {
           c[0][ch] += a[1][ch] + a[2][ch];
@@ -416,7 +298,7 @@ scale_kernel(const void* __restrict__ frame, const PassParams p, uint8_t* __rest
 template <bool PACKED, bool VEC, bool FUSED>
 cudaError_t launch_tiles(const PassParams& p, const OverlayParams& op, const void* frame, float tm,
                          void* zb, void* fc, void* fp, void* ds, void* yuv, cudaStream_t st) {
-  const size_t smem = PACKED ? PK_SMEM : PL_SMEM;
+  const size_t smem = PACKED ? K1Tile::PK_SMEM : K1Tile::PL_SMEM;
   tile_kernel<PACKED, VEC, FUSED><<<dim3(p.tiles_x, p.tiles_y), TILE_THREADS, smem, st>>>(
       frame, op, p, tm, (uint8_t*)zb, (uint8_t*)fc, (uint8_t*)fp, (uint8_t*)ds, (uint8_t*)yuv);
   return cudaGetLastError();

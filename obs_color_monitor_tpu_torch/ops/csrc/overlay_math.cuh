@@ -6,17 +6,19 @@
 // obs_color_monitor_tpu/ops/pallas_overlays.py::_overlay_band_math (:48),
 // which both the frame-pipeline kernel (K1) and the standalone overlay
 // kernel (K3) run.  Here it is one __device__ function on one pixel and
-// its four neighbours (overlay_at), which K1 (frame_pipeline.cu) and K3
-// (fused_overlays.cu) share.  Everything is integer except the zebra
-// stripe phase, which is float32 as in the shader: floor((float)(x + y + 1)
-// + tm), with x+y+1 exact in float32 and one rounding for the add, the same
-// as the JAX op order ((x + y) + 1) + tm.
+// its four neighbours (overlay_pixel), which K1's tile pass
+// (frame_pipeline.cu) calls on runs of pixels read from a tile in shared
+// memory (tile_pass.cuh); K3 (fused_overlays.cu) computes the same rules on
+// whole words of 4 pixels and shares OverlayParams and fc_color_word.
+// Everything is integer except the zebra stripe phase, which is float32 as
+// in the shader: floor((float)(x + y + 1) + tm), with x+y+1 exact in
+// float32 and one rounding for the add, the same as the JAX op order
+// ((x + y) + 1) + tm.
 //
-// The optional rect (x0, y0, x1, y1) of K3 moves the focus-peaking edge
-// clamps to the rect borders, as pallas_overlays applies it (:135-158);
-// K3 anchors the zebra phase at the rect origin by passing
-// tm - (x0 + y0) (pallas_overlays.py:81).  Without a rect it is the whole
-// frame.
+// The has_ flags carry the frame's edges, or a rect's: K3's optional rect
+// (x0, y0, x1, y1) moves the focus-peaking edge clamps to the rect borders,
+// as pallas_overlays applies it (:135-158), and anchors the zebra phase at
+// the rect origin, tm - (x0 + y0) (pallas_overlays.py:81).
 #pragma once
 
 #include <cstdint>
@@ -58,12 +60,12 @@ __device__ __forceinline__ uint32_t fc_color_word(const OverlayParams& p, int ba
 // c: the pixel (R, G, B, A); l/r/u/d: its left/right/upper/lower
 // neighbours (RGB used), each valid only where its has_ flag is set (the
 // edge clamp of the sampler makes a missing neighbour contribute 0).
-// fc_table: the band colours as fc_color_word gives them, or null to read
-// them from p.
+// fc_table: the 12 band colours as fc_color_word gives them, in shared
+// memory.
 __device__ __forceinline__ OverlayPixel overlay_pixel(
     const OverlayParams& p, int x, int y, float tm, const int c[4],
     const int l[4], const int r[4], const int u[4], const int d[4],
-    bool has_l, bool has_r, bool has_u, bool has_d, const uint32_t* fc_table = nullptr) {
+    bool has_l, bool has_r, bool has_u, bool has_d, const uint32_t* fc_table) {
   OverlayPixel o;
 
   // zebra: stripes where th_low <= luma <= th_high and phase mod 6 < 3
@@ -81,14 +83,9 @@ __device__ __forceinline__ OverlayPixel overlay_pixel(
   int band = 0;
 #pragma unroll
   for (int i = 0; i < 11; ++i) band += luma_fc >= p.fc_thresh[i];
-  if (fc_table != nullptr) {
-    const uint32_t col = fc_table[band];
+  const uint32_t col = fc_table[band];
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch) o.fc[ch] = (uint8_t)(col >> (8 * ch));
-  } else {
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) o.fc[ch] = (uint8_t)p.fc_color[band * 4 + ch];
-  }
+  for (int ch = 0; ch < 4; ++ch) o.fc[ch] = (uint8_t)(col >> (8 * ch));
 
   // focus peaking: 4-neighbour cross of |neighbour - centre| over RGB
   int acc = 0;
@@ -102,6 +99,8 @@ __device__ __forceinline__ OverlayPixel overlay_pixel(
   return o;
 }
 
+// Pixel (x, y) of a packed (h4, w4) 32-bit or planar (4, h4, w4) u8 frame
+// in global memory, as (R, G, B, A) (K1's scale launch).
 template <bool PACKED>
 __device__ __forceinline__ void load_px(const void* __restrict__ frame, int h4, int w4,
                                         int x, int y, int out[4]) {
@@ -118,24 +117,4 @@ __device__ __forceinline__ void load_px(const void* __restrict__ frame, int h4, 
 #pragma unroll
     for (int c = 0; c < 4; ++c) out[c] = __ldg(f + c * plane + i);
   }
-}
-
-// The three overlays of pixel (x, y) of a packed (H, W) 32-bit or planar
-// (4, H, W) u8 frame.  A neighbour counts only inside the rect: the left
-// one where x0 < x < x1, the right one where x < x1 - 1, the upper one
-// where y0 < y < y1, the lower one where y < y1 - 1 (the JAX
-// focus_peaking_planes rule, which defines pixels outside the rect too).
-template <bool PACKED>
-__device__ __forceinline__ OverlayPixel overlay_at(const void* __restrict__ frame,
-                                                   const OverlayParams& p, int x, int y,
-                                                   float tm, int x0, int y0, int x1, int y1) {
-  int c[4], l[4] = {0}, r[4] = {0}, u[4] = {0}, d[4] = {0};
-  load_px<PACKED>(frame, p.h, p.w, x, y, c);
-  const bool has_l = x > x0 && x < x1, has_r = x < x1 - 1;
-  const bool has_u = y > y0 && y < y1, has_d = y < y1 - 1;
-  if (has_l) load_px<PACKED>(frame, p.h, p.w, x - 1, y, l);
-  if (has_r) load_px<PACKED>(frame, p.h, p.w, x + 1, y, r);
-  if (has_u) load_px<PACKED>(frame, p.h, p.w, x, y - 1, u);
-  if (has_d) load_px<PACKED>(frame, p.h, p.w, x, y + 1, d);
-  return overlay_pixel(p, x, y, tm, c, l, r, u, d, has_l, has_r, has_u, has_d);
 }

@@ -373,3 +373,43 @@ def test_fast_forms_taken_at_main_path_shapes(cuda):
     k2 = ss.vs_wv_counts.launches_vec
     ss.vs_wv_counts(*tp.stats_inputs(ds, yuv, False))
     assert ss.vs_wv_counts.launches_vec == k2 + 1
+
+
+@pytest.mark.parametrize("h,w,off", [(68, 144, 0), (68, 144, 1), (68, 132, 0), (70, 130, 0),
+                                     (1080, 1920, 5)])
+def test_k3_forms_and_single_outputs(cuda, h, w, off):
+    """K3 in each of its forms (16-byte copies or plain loads, word or byte
+    stores, a base that is not 16-byte aligned) with each output alone and
+    all three, planar and packed, with and without a rect tensor."""
+    rng = np.random.default_rng(h + w + off)
+    buf = torch.from_numpy(rng.integers(0, 256, 4 * h * w + 16, np.uint8)).to(cuda)
+    x = buf[off:off + 4 * h * w].view(4, h, w)
+    rects = (None, torch.tensor((w // 5, h // 4, w - 3, h - 2), dtype=torch.int32, device=cuda))
+    for rect in rects:
+        for outputs in ((True, True, True), (True, False, False), (False, True, False),
+                        (False, False, True)):
+            for packed_out in (False, True):
+                kw = dict(ARGS, rect=rect, packed_out=packed_out, outputs=outputs)
+                vec = fo.fused_overlays_planes.launches_vec
+                got = fo.fused_overlays_planes(x, 3.7, **kw)
+                assert fo.fused_overlays_planes.launches_vec == vec + (off == 0 and w % 16 == 0)
+                for a, b in zip(got, fo.fused_overlays_reference(x, 3.7, **kw)):
+                    assert (a is None and b is None) or torch.equal(a, b), (rect, outputs)
+
+
+def test_dock_settled_frame_launches_k3_once(cuda):
+    """The settled Dock computes its three shown overlays in one K3 launch
+    per frame, equal to the CPU Dock's panel."""
+    from obs_color_monitor_tpu_torch.models import Dock
+
+    rng = np.random.default_rng(14)
+    docks = [Dock(DockConfig(show_focuspeaking=True), device=dev) for dev in (cuda, "cpu")]
+    for i in range(3):
+        f = rng.integers(0, 256, (96, 160, 4), np.uint8)
+        launches = fo.fused_overlays_planes.launches
+        panels = []
+        for d in docks:
+            d.push_frame(f)
+            panels.append(d.render(width=256, height=900))
+        assert fo.fused_overlays_planes.launches == launches + 1, i
+        assert np.array_equal(*panels), i

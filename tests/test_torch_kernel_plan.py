@@ -1,8 +1,9 @@
-"""The launch geometry of kernels K1 and K2, computed in Python, and the
-wrappers' argument checks: pure functions, held here on the CPU.
+"""The launch geometry of kernels K1, K2 and K3, computed in Python, and
+the wrappers' argument checks: pure functions, held here on the CPU.
 
 ``scope_stats.stats_plan`` sizes K2's vectorscope runs and waveform strips,
-``pipeline.frame_plan`` K1's tiles and scale grid.  At every shape the
+``pipeline.frame_plan`` K1's tiles and scale grid, ``fused_overlays.
+overlay_plan`` K3's tiles.  At every shape the
 reference's tests use and at 4K they must count every pixel exactly once,
 keep every 16-bit counter field at or under 65535, and depend on the shape
 (and the planes' alignment), never on a rect.
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from obs_color_monitor_tpu_torch.ops import fused_overlays as fo
 from obs_color_monitor_tpu_torch.ops import pipeline as tp
 from obs_color_monitor_tpu_torch.ops import scope_stats as ss
 
@@ -253,3 +255,140 @@ def test_frame_wrapper_refuses_other_devices():
         tp.frame_pass(torch.zeros((16, 24), dtype=torch.int32, device="meta"), packed=True, cs=2,
                       scale=2)
     assert tp.check_frame_inputs(torch.zeros((16, 24), dtype=torch.int32), True, 2) == (16, 24, 8, 12)
+
+
+# K3: overlay_plan over the reference's shapes (and the (33, 17) tile),
+# the dock's 1080p capture and 4K
+OVERLAY_FRAMES = [(13, 17), (33, 17), (65, 144), (129, 131), (131, 133), (131, 270),
+                  (1080, 1920), (2160, 3840)]
+
+
+def _overlay_tile_pattern():
+    """How many times one K3 block's threads write each pixel of its tile:
+    thread t takes the run at column (t % runs) * RUN of rows t // runs,
+    t // runs + ROW_GROUPS, ... (fused_overlays.cu's loop)."""
+    runs = fo.TILE_W // fo.RUN
+    cover = np.zeros((fo.TILE_H, fo.TILE_W), np.int64)
+    for t in range(fo.THREADS):
+        cx = (t % runs) * fo.RUN
+        for ry in range(t // runs, fo.TILE_H, fo.ROW_GROUPS):
+            cover[ry, cx:cx + fo.RUN] += 1
+    return cover
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+@pytest.mark.parametrize("h,w", OVERLAY_FRAMES)
+def test_overlay_plan_covers_every_pixel_once(h, w, packed_out):
+    plan = fo.overlay_plan(h, w, packed_out)
+    tx, ty = plan.tiles
+    assert (tx - 1) * fo.TILE_W < w <= tx * fo.TILE_W
+    assert (ty - 1) * fo.TILE_H < h <= ty * fo.TILE_H
+    cover = np.tile(_overlay_tile_pattern(), (ty, tx))
+    assert np.all(cover[:h, :w] == 1)
+
+
+def test_overlay_plan_one_wave_at_the_dock_capture():
+    """The 1080p capture fits one wave of 4 blocks on each of 132 SMs,
+    where K1's 16 x 256 tile would need a second."""
+    plan = fo.overlay_plan(1080, 1920, True)
+    assert plan.tiles == (15, 34) and plan.tiles[0] * plan.tiles[1] <= 4 * 132
+    assert -(-1920 // 256) * -(-1080 // 16) > 4 * 132
+    assert plan.vec and plan.store_bytes == 16
+    assert fo.overlay_plan(2160, 3840, True) == fo.OverlayPlan(True, 16, (30, 68))
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("w", [17, 131, 132, 144, 270, 1441, 1920])
+def test_overlay_plan_wide_forms_follow_alignment(w, aligned, packed_out):
+    plan = fo.overlay_plan(40, w, packed_out, aligned)
+    # 16-byte copies: a 16-byte aligned base and rows (w % 16 == 0)
+    assert plan.vec == (aligned and w % 16 == 0)
+    # a run's stores are whole words when w % 4 == 0: 16 bytes packed
+    # (4 pixels), one word per plane; else a pixel or a byte at a time
+    if packed_out:
+        assert plan.store_bytes == (16 if w % 4 == 0 else 4)
+    else:
+        assert plan.store_bytes == (4 if w % 4 == 0 else 1)
+
+
+def test_overlay_plan_fields_and_launch_args():
+    """The plan's grid fits its C int fields, and the cached kernel
+    arguments carry the plan's forms."""
+    assert fo.overlay_plan(0, 5, True).tiles == (0, 0)
+    assert fo.overlay_plan(65535 * fo.TILE_H, 4, False).tiles == (1, 65535)
+    with pytest.raises(ValueError):
+        fo.overlay_plan(65535 * fo.TILE_H + 1, 4, False)
+    with pytest.raises(ValueError):
+        fo.overlay_plan(-1, 4, True)
+    for w, packed_out, aligned in ((1920, True, True), (270, False, True), (1920, True, False)):
+        op, lp, *_, plan = fo._launch_args(1080, w, 0.75, 1.0, 2, 1, 3062, (255, 84, 0, 255),
+                                           packed_out, aligned)
+        assert (lp.vec, lp.packed_out, lp.word) == (plan.vec, packed_out, w % 4 == 0)
+        assert (lp.tiles_x, lp.tiles_y) == plan.tiles
+        assert (op.h, op.w, op.kl_fc[0]) == (1080, w, 1225)
+    # one set of static arguments builds its structures once
+    a = fo._launch_args(64, 64, 0.75, 1.0, 2, 2, 0, (0, 0, 0, 0), True, True)
+    assert fo._launch_args(64, 64, 0.75, 1.0, 2, 2, 0, (0, 0, 0, 0), True, True) is a
+
+
+def test_overlay_plan_takes_no_rect():
+    assert not any("rect" in p for p in inspect.signature(fo.overlay_plan).parameters)
+
+
+@pytest.mark.parametrize("case", ["channels", "dtype", "strided", "no_output", "rect_dtype",
+                                  "rect_shape", "rect_strided", "rect_device"])
+def test_overlay_argument_checks(case):
+    planes = torch.zeros((4, 6, 10), dtype=torch.uint8)
+    rect, outputs = torch.tensor((1, 1, 5, 5), dtype=torch.int32), fo.ALL
+    if case == "channels":
+        planes = planes[:3]
+    elif case == "dtype":
+        planes = planes.to(torch.int16)
+    elif case == "strided":
+        planes = torch.zeros((4, 6, 20), dtype=torch.uint8)[:, :, ::2]
+    elif case == "no_output":
+        outputs = (False, False, False)
+    elif case == "rect_dtype":
+        rect = rect.to(torch.int64)
+    elif case == "rect_shape":
+        rect = rect[:3]
+    elif case == "rect_strided":
+        rect = torch.zeros(8, dtype=torch.int32)[::2]
+    elif case == "rect_device":
+        rect = rect.to("meta")
+    with pytest.raises(ValueError):
+        fo.check_overlay_inputs(planes, rect, outputs)
+
+
+def test_overlay_argument_checks_pass():
+    planes = torch.zeros((4, 6, 10), dtype=torch.uint8)
+    assert fo.check_overlay_inputs(planes, None, (False, False, True)) == (6, 10)
+    assert fo.check_overlay_inputs(planes, (1, 2, 3, 4), fo.ALL) == (6, 10)
+    rect = torch.tensor((1, 1, 5, 5), dtype=torch.int32)
+    assert fo.check_overlay_inputs(planes, rect, fo.ALL) == (6, 10)
+
+
+def test_fc_bucket_table_gives_every_band():
+    """K3's false-colour band from its table (one lookup by luma >> 12 and
+    one compare) equals the count of bounds <= luma at every luma of u8 RGB
+    in both colorspaces, and K3's luma coefficients split into bytes."""
+    from obs_color_monitor_tpu_torch.ops import overlays as ov
+
+    table = fo.fc_bucket_table().astype(np.int64)
+    assert table.shape == (fo.FC_BUCKETS,)
+    top = max(255 * sum(fo.check_luma_coefficients(cs)) for cs in (1, 2))
+    luma = np.arange(top + 1)
+    entry = table[luma >> 12]
+    band = (entry >> 20) + (luma >= (entry & 0xFFFFF))
+    assert np.array_equal(band, np.searchsorted(np.asarray(ov.BAND_THRESH), luma, side="right"))
+    for cs in (1, 2):
+        assert all(0 <= k < 1 << 16 for k in fo.check_luma_coefficients(cs))
+
+
+@pytest.mark.parametrize("thresh", [(10, 4000, 9000), (5000, 4000), (0, 1 << 20)])
+def test_fc_bucket_table_rejects_what_the_kernel_cannot_take(thresh):
+    """Two bounds in one bucket of 4096, bounds out of order or past the
+    table's range."""
+    with pytest.raises(ValueError):
+        fo.fc_bucket_table(thresh)

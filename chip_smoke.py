@@ -38,33 +38,43 @@ any failure raises and the exit code is non-zero:
    dock=DockConfig(show_focuspeaking=True))`` on NV12 frames and its P010
    form; rgba with a static ROI, full-resolution overlays, a
    vectorscope-only dock and ``make_full_step(input_format="nv12")``;
-   ``fused_ingest_stats_scale2`` on 4K planar frames; the dynamic-ROI dock
-   step (``dynamic_roi=True``) over a 6-rect drag, the same launches for
-   every rect, equal at the ROI to the static ``roi_rect`` step, and one
-   step captured in a CUDA graph, replayed for the later rects with the
-   rect tensor overwritten in place; the streaming ``models.Dock`` on 6
-   4K NV12 frames with a move-drag on its ROI band, against a CPU Dock fed
-   the same frames and mouse events; one 270x480 frame against the golden
-   model.  On every path K1, K2 and K3 must also have taken their fast
-   forms (16-byte loads, cp.async stages) on every call (the ``K1 vec`` /
-   ``K2 vec`` / ``K3 vec`` counts), and the streaming Dock must launch K3
-   exactly once per frame, settled or moving;
+   ``fused_ingest_stats_scale2`` on 4K planar frames; the full step with a
+   logscale histogram; the dynamic-ROI dock step (``dynamic_roi=True``) over
+   a 6-rect drag, the same launches for every rect, equal at the ROI to the
+   static ``roi_rect`` step, its captured graph replayed for more rects
+   equal to ``step.eager``; the streaming ``models.Dock`` on 6 4K NV12
+   frames with a move-drag on its ROI band, against a CPU Dock fed the
+   same frames and mouse events; the captured steps (the full step, the
+   static and dynamic dock steps, the settled Dock) at tm = 1.0 and 4.0,
+   each replay equal to ``step.eager`` and to the CPU, the zebra differing
+   between the clocks and an earlier result unchanged by a later call; the
+   batched step (``make_batched_step``) at B = 2 and 4 on 4K packed, B = 4
+   on 1080p and B = 2 on 4K NV12 frames, each frame equal to the eager
+   full step, one frame to the CPU, with one K1, K2 and K4 launch per
+   batch; one 270x480 frame against the golden model.  The steps run as
+   their users call them: on the card each is a CUDA graph replay, whose
+   launches the wrappers' counts book per replay.  On every path K1, K2
+   and K3 must also have taken their fast forms (16-byte loads, cp.async
+   stages) on every call (the ``K1 vec`` / ``K2 vec`` / ``K3 vec``
+   counts), and the streaming Dock must launch K3 exactly once per frame,
+   settled or moving;
 5. timing with CUDA events (warm-up, then the median of 25 runs of 10
-   back-to-back calls): the 4K full step, the 4K NV12 dock step, its
-   dynamic-ROI form eagerly and as a CUDA graph replay, per frame; each
-   kernel beside its plain version and, where one exists, the one PyTorch
-   call that computes the same function (K2 and K3 also in rect mode, K2
-   also on a flat frame, K1 as its overlay+scale pass and its scale-only
-   pass, K3 also with one output and with a cold L2, each with its bound);
-   then each kernel's device time alone, from
-   torch.profiler: the sum of its kernels' durations and its span (first
-   start to last end: K2's two counts overlap);
-6. a torch.profiler window over 10 full steps, 10 NV12 and 10 P010 dock
-   steps: device time per kernel and the device's busy share of the
-   window.
+   back-to-back calls): each step eagerly (``step.eager``) and as its
+   graph replay (input copies and output copies included), per frame: the
+   4K full step, the 4K NV12 dock step, its dynamic-ROI form, the settled
+   Dock and the batched step at B = 1, 2, 4; each kernel beside its plain
+   version and, where one exists, the one PyTorch call that computes the
+   same function (K2 and K3 also in rect mode, K2 also on a flat frame, K1
+   as its overlay+scale pass and its scale-only pass, K3 also with one
+   output and with a cold L2, K1, K2, K4 and K5 also batched, each with
+   its bound); then each kernel's device time alone, from torch.profiler:
+   the sum of its kernels' durations and its span (first start to last
+   end: K2's two counts overlap);
+6. torch.profiler windows over 10 calls of each step, eager and replayed:
+   device time per kernel and the device's busy share of the window.
 
-Then one JSON line with the per-kernel results, the card line, and as the
-last line ``{"ok": true, "device": {...}}``.
+Then the total wall time, one JSON line with the per-kernel results, the
+card line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -578,29 +588,12 @@ def drag_rects(roi, n: int, step: tuple) -> list:
              roi[3] + k * step[1]) for k in range(n)]
 
 
-def capture_graph(step, frame, rect):
-    """One dynamic-ROI step captured in a CUDA graph (after two warm-up
-    steps on a side stream, as torch.cuda.graph asks): (graph, its output)."""
-    import torch
-
-    side = torch.cuda.Stream(rect.device)
-    side.wait_stream(torch.cuda.current_stream(rect.device))
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            step(frame, 1.0, rect)
-    torch.cuda.current_stream(rect.device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = step(frame, 1.0, rect)
-    return graph, out
-
-
 def phase_dynamic_dock(device, h=H4K, w=W4K, roi=ROI, frames=DRAG_FRAMES) -> dict:
     """The dynamic-ROI dock step over a drag: each frame equal to the CPU
     step at its rect, the same launches for every rect, equal at the ROI to
-    the static roi_rect step; on a card, one step captured in a CUDA graph
-    and replayed for the later rects (and the edge rects) with the rect
-    tensor overwritten in place, equal to the eager step."""
+    the static roi_rect step; on a card the step is its CUDA graph, one
+    graph for every rect, and its replays for the later rects (and the edge
+    rects, also given as host ints) equal the eager step."""
     import torch
 
     from obs_color_monitor_tpu_torch import DockConfig, frame_from_numpy, make_dock_step
@@ -645,16 +638,16 @@ def phase_dynamic_dock(device, h=H4K, w=W4K, roi=ROI, frames=DRAG_FRAMES) -> dic
     if device.type == "cuda":
         graph_rects = rects[1:] + [(0, 0, sw, sh), (sw - 1, sh - 1, sw, sh),
                                    (-50, -20, 10 * sw, 10 * sh), (sw // 3, sh // 3, sw // 3, sh)]
-        rect = torch.tensor(rects[0], dtype=torch.int32, device=device)
-        graph, out = capture_graph(step, dev[0], rect)
         for r in graph_rects:
-            rect.copy_(torch.tensor(r, dtype=torch.int32))
-            graph.replay()
-            eager = step(dev[0], 1.0, torch.tensor(r, dtype=torch.int32, device=device))
-            compare_fields(f"path {name} graph replay rect {r}", out.to_numpy(),
-                           eager.to_numpy())
-        print(f"path {name}: a CUDA graph of one step, replayed for {len(graph_rects)} rects, "
-              "equals the eager step at each", flush=True)
+            t = torch.tensor(r, dtype=torch.int32, device=device)
+            eager = step.eager(dev[0], 1.0, t).to_numpy()
+            for rect in (t, r):  # a rect tensor, or host ints written into the graph's buffer
+                compare_fields(f"path {name} graph replay rect {r}",
+                               step(dev[0], 1.0, rect).to_numpy(), eager)
+        if step.graphs != 1:
+            raise AssertionError(f"path {name}: {step.graphs} graphs for one frame shape")
+        print(f"path {name}: one CUDA graph, replayed for {len(graph_rects)} rects (as tensors "
+              "and as host ints), equals the eager step at each", flush=True)
     return {name: counts}
 
 
@@ -739,6 +732,7 @@ def dock_paths(h=H4K, w=W4K, roi=ROI):
         Components, DockConfig, HistogramConfig, make_dock_step, make_full_step)
 
     all6 = DockConfig(show_focuspeaking=True)
+    logscale = HistogramConfig(logscale=True)
     vs_only = DockConfig(show_roi=False, show_waveform=False, show_histogram=False,
                          show_focuspeaking=True)
     dock = lambda **kw: (lambda d: make_dock_step(h, w, scale=2, device=d, **kw))
@@ -759,6 +753,10 @@ def dock_paths(h=H4K, w=W4K, roi=ROI):
         ("full_step nv12", lambda d: make_full_step(h, w, scale=2, input_format="nv12",
                                                     device=d),
          [make_nv12(h, w, 220)], "nv12", ("K1", "K2", "K4"), "K2"),
+        # float32 log levels on the card against the CPU's
+        ("full_step logscale", lambda d: make_full_step(h, w, scale=2, histogram=logscale,
+                                                        device=d),
+         rgba, "rgba", ("K1", "K2"), "K2"),
     ]
 
 
@@ -766,6 +764,200 @@ def phase_dock_paths(device, **kw) -> dict:
     """Every dock path; returns {path: its counts by kernel id}."""
     return {name: run_path(name, build, frames, fmt, device, needs, both_as)
             for name, build, frames, fmt, needs, both_as in dock_paths(**kw)}
+
+
+CLOCKS = (1.0, 4.0)  # zebra phases 3 of 6 apart: every stripe flips
+
+
+def host_fields(out) -> dict:
+    """The set fields of a step's output as host arrays."""
+    return {k: v.cpu().numpy() for k, v in out._asdict().items() if v is not None}
+
+
+def check_clocks(name: str, outs: list, field: str) -> None:
+    """Raise unless ``field`` differs between the two clocks' outputs (a
+    graph that froze the clock would replay the first one's zebra)."""
+    if np.array_equal(outs[0][field], outs[1][field]):
+        raise AssertionError(f"{name}: {field} is the same at tm = {CLOCKS}: a frozen clock")
+
+
+def phase_captured(device, h=H4K, w=W4K, roi=ROI) -> dict:
+    """Each captured step at tm = 1.0 and 4.0: the 4K packed full step, the
+    4K NV12 dock step, its dynamic-ROI form and the settled streaming
+    ``models.Dock``.  On a card each replay equals ``step.eager`` on the
+    same inputs there and the same step on the CPU; the zebra output (the
+    full step's plane, the docks' panels) differs between the clocks; a
+    result returned earlier is unchanged after a later call.  The counts
+    are read around the replays."""
+    import torch
+
+    from obs_color_monitor_tpu_torch import (
+        DockConfig, ROIConfig, frame_from_numpy, make_dock_step, make_full_step)
+    from obs_color_monitor_tpu_torch.models import Dock
+
+    all6 = DockConfig(show_focuspeaking=True)
+    sw, sh = w // 2, h // 2
+    packed = make_frame(h, w, "random", 900).view(np.uint32)[..., 0]
+    nv12 = make_nv12(h, w, 901)
+    steps = [
+        ("captured full_step packed", lambda d: make_full_step(
+            h, w, scale=2, input_format="packed", device=d), packed, "packed", (),
+         "zebra", ("K1", "K2")),
+        ("captured dock nv12", lambda d: make_dock_step(
+            h, w, scale=2, input_format="nv12", dock=all6, device=d), nv12, "nv12", (),
+         "panel", ("K1", "K2", "K3", "K4")),
+        ("captured dock nv12 dynamic_roi", lambda d: make_dock_step(
+            h, w, scale=2, input_format="nv12", dock=all6, dynamic_roi=True, device=d), nv12,
+         "nv12", (roi,), "panel", ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect")),
+    ]
+    by_path = {}
+    for name, build, host, fmt, extra, field, needs in steps:
+        step, step_cpu = build(device), build("cpu")
+        x = frame_from_numpy(host, fmt, device)
+        x_cpu = frame_from_numpy(host, fmt, "cpu")
+        dev_extra = tuple(torch.tensor(r, dtype=torch.int32, device=device) for r in extra)
+        cpu_extra = tuple(torch.tensor(r, dtype=torch.int32) for r in extra)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        reset_counts()
+        outs, first = [], None
+        for tm in CLOCKS:
+            out = step(x, tm, *dev_extra)
+            first = first or out
+            outs.append(host_fields(out))
+        counts = path_counts(name, read_counts(), needs, device)
+        for tm, got in zip(CLOCKS, outs):
+            compare_fields(f"{name} tm {tm} vs the CPU", got,
+                           host_fields(step_cpu(x_cpu, tm, *cpu_extra)))
+            if device.type == "cuda":
+                compare_fields(f"{name} tm {tm} vs step.eager", got,
+                               host_fields(step.eager(x, tm, *dev_extra)))
+        check_clocks(name, outs, field)
+        step(x, 7.5, *dev_extra)
+        compare_fields(f"{name}: the tm {CLOCKS[0]} result after a later call",
+                       host_fields(first), outs[0])
+        print(f"{name}: the replays equal step.eager and the CPU at tm {CLOCKS}, {field} "
+              "differs between them, an earlier result is unchanged", flush=True)
+        by_path[name] = counts
+
+    # the settled Dock: frame 0 publishes through the hub, frame 1 renders
+    # every scope (the waveform shows the frame before), frame 2 captures
+    # the stream step; frames 3 and 4 replay it, at the two clocks (set
+    # after each push, which ticks them)
+    name = "captured models.Dock settled"
+    docks = [Dock(all6, roi=ROIConfig(target_scale=2, interleave=0), device=d)
+             for d in (device, "cpu")]
+    warm = 3
+    frames = [make_nv12(h, w, 910 + i) for i in range(warm + len(CLOCKS))]
+    outs, first = [], None
+    # the replays' launches, read around each render alone (the eager
+    # comparison's launches are not the path's)
+    total = dict.fromkeys(read_counts(), 0)
+    for i, (y, uv) in enumerate(frames):
+        panels = []
+        for d in docks:
+            d.push_nv12(y, uv)
+            if i >= warm:
+                d.zebra.tm = CLOCKS[i - warm]
+            card = d is docks[0]
+            eager = None
+            if i >= warm and card and device.type == "cuda":
+                p, wv = d._pending, d.waveform
+                eager = d._settled.eager((p.y, p.uv), float(d.zebra.tm), wv._buf[wv._r_buf])[0]
+            before = read_counts()
+            panels.append(d.render_async())
+            if card and i >= warm:
+                counts_i = {k: v - before[k] for k, v in read_counts().items()}
+                if device.type == "cuda" and (counts_i["K3"] != 1 or counts_i["K1"] != 1):
+                    raise AssertionError(f"{name} frame {i}: {counts_i}")
+                total = {k: v + counts_i[k] for k, v in total.items()}
+            if eager is not None and not torch.equal(eager, panels[-1]):
+                raise AssertionError(f"{name} frame {i}: the replay differs from its eager step")
+        if not np.array_equal(panels[0].cpu().numpy(), panels[1].numpy()):
+            raise AssertionError(f"{name} frame {i}: the panel differs from the CPU Dock's")
+        if i >= warm:
+            first = first if first is not None else panels[0]
+            outs.append({"panel": panels[0].cpu().numpy()})
+    counts = path_counts(name, total, ("K1", "K2", "K3", "K4"), device)
+    if docks[0]._settled is None or (device.type == "cuda" and docks[0]._settled.graphs != 1):
+        raise AssertionError(f"{name}: the settled route did not replay its graph")
+    check_clocks(name, outs, "panel")
+    if not np.array_equal(first.cpu().numpy(), outs[0]["panel"]):
+        raise AssertionError(f"{name}: an earlier panel changed")
+    print(f"{name}: the replays equal the eager stream step and the CPU Dock at tm {CLOCKS}, "
+          "the panels differ between them, an earlier panel is unchanged", flush=True)
+    by_path[name] = counts
+    return by_path
+
+
+BATCH_CASES = (  # name, h, w, input format, B
+    ("batched packed 4K B=2", H4K, W4K, "packed", 2),
+    ("batched packed 4K B=4", H4K, W4K, "packed", 4),
+    ("batched packed 1080p B=4", 1080, 1920, "packed", 4),
+    ("batched nv12 4K B=2", H4K, W4K, "nv12", 2),
+    ("batched p010 4K B=2", H4K, W4K, "p010", 2),
+)
+
+
+def step_format(fmt: str) -> dict:
+    """The step keywords of a batch format ("p010": 10-bit MSB-aligned u16
+    NV12 planes)."""
+    if fmt == "p010":
+        return dict(input_format="nv12", nv12_shift=8)
+    return dict(input_format=fmt)
+
+
+def batch_input(h, w, fmt, b, seed, device):
+    """(host frames, the batch on ``device``, distinct clocks (b,))."""
+    import torch
+
+    if fmt in ("nv12", "p010"):
+        host = [make_nv12(h, w, seed + i, *((10, True) if fmt == "p010" else ())) for i in range(b)]
+        batch = tuple(torch.from_numpy(np.stack([f[k] for f in host])).to(device)
+                      for k in range(2))
+    else:
+        host = [make_frame(h, w, "random", seed + i).view(np.uint32)[..., 0] for i in range(b)]
+        batch = torch.from_numpy(np.stack(host).view(np.int32)).to(device)
+    tms = torch.tensor([0.0667 + 1.25 * i for i in range(b)], dtype=torch.float32,
+                       device=device)
+    return host, batch, tms
+
+
+def phase_batched(device, cases=BATCH_CASES) -> dict:
+    """``make_batched_step`` at scale 2: each frame equal to the eager full
+    step on that frame with its clock, the last frame equal to the CPU
+    step, and one K1, one K2 and (NV12 / P010) one K4 / K5 launch per
+    batch."""
+    from obs_color_monitor_tpu_torch import frame_from_numpy, make_batched_step, make_full_step
+
+    by_path = {}
+    for n, (name, h, w, fmt, b) in enumerate(cases):
+        kw = step_format(fmt)
+        step = make_batched_step(h, w, scale=2, device=device, **kw)
+        single = make_full_step(h, w, scale=2, device=device, **kw)
+        host, batch, tms = batch_input(h, w, fmt, b, 1000 + 10 * n, device)
+        reset_counts()
+        out = host_fields(step(batch, tms))
+        decode = {"nv12": ("K4",), "p010": ("K5",)}.get(fmt, ())
+        counts = path_counts(name, read_counts(), ("K1", "K2") + decode, device)
+        per_batch = {"K1": 1, "K2": 1, "K4": int(fmt == "nv12"), "K5": int(fmt == "p010")}
+        if device.type == "cuda" and any(counts[k] != v for k, v in per_batch.items()):
+            raise AssertionError(f"{name}: {counts}, expected one launch per batch {per_batch}")
+        fmt = kw["input_format"]
+        for i, f in enumerate(host):
+            x = frame_from_numpy(f, fmt, device)
+            want = host_fields((single.eager if device.type == "cuda" else single)(x, tms[i]))
+            compare_fields(f"{name} frame {i} vs the full step", {k: v[i] for k, v in out.items()},
+                           want)
+        cpu = make_full_step(h, w, scale=2, device="cpu", **kw)
+        compare_fields(f"{name} frame {b - 1} vs the CPU", {k: v[b - 1] for k, v in out.items()},
+                       host_fields(cpu(frame_from_numpy(host[-1], fmt, "cpu"),
+                                       tms[b - 1].cpu())))
+        print(f"{name}: every frame equals the full step, the last the CPU; launches "
+              f"K1={counts['K1']} K2={counts['K2']} K4={counts['K4']} K5={counts['K5']} for {b} "
+              "frames", flush=True)
+        by_path[name] = counts
+    return by_path
 
 
 def phase_golden(device, h=270, w=480) -> None:
@@ -913,12 +1105,27 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def settled_dock(device, nv12):
+    """A streaming ``models.Dock`` on 4K NV12 frames (all six scopes) with
+    its settled route captured: three push + render frames."""
+    from obs_color_monitor_tpu_torch import DockConfig, ROIConfig
+    from obs_color_monitor_tpu_torch.models import Dock
+
+    dock = Dock(DockConfig(show_focuspeaking=True), roi=ROIConfig(interleave=0), device=device)
+    for _ in range(3):
+        dock.push_nv12(*nv12)
+        dock.render_async()
+    return dock
+
+
 def phase_timing(device, card: str) -> tuple[dict, dict]:
-    """ms per call of the steps, the kernels, their plain versions and the
-    library calls, and each kernel's bound at the timed shapes."""
+    """ms per call of the steps (eager and replayed), the kernels, their
+    plain versions and the library calls, and each kernel's bound at the
+    timed shapes."""
     import torch
 
-    from obs_color_monitor_tpu_torch import DockConfig, make_dock_step, make_full_step
+    from obs_color_monitor_tpu_torch import (
+        DockConfig, make_batched_step, make_dock_step, make_full_step)
     from obs_color_monitor_tpu_torch.ops import convert as cv
     from obs_color_monitor_tpu_torch.ops import decode as dec
     from obs_color_monitor_tpu_torch.ops import fused_overlays as fo
@@ -926,6 +1133,9 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     from obs_color_monitor_tpu_torch.ops import scope_stats as ss
 
     fns, bounds = {}, {}
+    # the kernels' clock as the steps hand it over: a float32 in device
+    # memory (a float would add a fill launch to each timed call)
+    tm1 = torch.ones((), dtype=torch.float32, device=device)
     step = make_full_step(H4K, W4K, scale=2, input_format="packed", device=device)
     kw = dict(packed=True, cs=2, scale=2, **OV_ARGS)
     h, w = H4K // 2, W4K // 2
@@ -934,8 +1144,9 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
         inputs = pl.stats_inputs(*pl.frame_pass_reference(x, 1.0, **kw)[:2], False)
         library, check = library_counts(*inputs)
         check(f"K2 library {kind}")
-        fns[f"step_{kind}"] = lambda x=x: step(x, 1.0)
-        fns[f"k1_{kind}"] = lambda x=x: pl.frame_pass(x, 1.0, **kw)
+        fns[f"step_{kind}"] = lambda x=x: step(x, 1.0)  # the graph replay
+        fns[f"step_eager_{kind}"] = lambda x=x: step.eager(x, 1.0)
+        fns[f"k1_{kind}"] = lambda x=x: pl.frame_pass(x, tm1, **kw)
         fns[f"k1_plain_{kind}"] = lambda x=x: pl.frame_pass_reference(x, 1.0, **kw)
         # the scale-only pass (analyze, the docks, K9): K1 without overlays
         fns[f"k1_scale_{kind}"] = lambda x=x: pl.frame_pass(x, 1.0, with_overlays=False, **kw)
@@ -958,27 +1169,30 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     y, uv = to_device(make_nv12(H4K, W4K, 5), device)
     y16, uv16 = to_device(make_nv12(H4K, W4K, 6, 10, True), device)
     fns["dock_nv12"] = lambda: dock_nv12((y, uv), 1.0)
+    fns["dock_nv12_eager"] = lambda: dock_nv12.eager((y, uv), 1.0)
     fns["k4"] = lambda: dec.nv12_decode(y, uv, cs=2)
     fns["k4_plain"] = lambda: cv.nv12_packed_reference(y, uv, 2)
     fns["k5"] = lambda: dec.nv12_16_decode(y16, uv16, cs=2, shift=8)
     fns["k5_plain"] = lambda: cv.nv12_16_packed_reference(y16, uv16, 2, 8)
     bounds["K4"] = bound(H4K * W4K * (1 + 0.5 + 4), H4K * W4K * 25)
     bounds["K5"] = bound(H4K * W4K * (2 + 1 + 4), H4K * W4K * 35)
+    bounds["K4 b2"] = bound(2 * H4K * W4K * (1 + 0.5 + 4), 2 * H4K * W4K * 25)
+    bounds["K5 b2"] = bound(2 * H4K * W4K * (2 + 1 + 4), 2 * H4K * W4K * 35)
     # K3 at the dock's shapes: the scaled capture, packed output
     cap = pl.frame_pass_reference(cv.nv12_packed_reference(y, uv, 2), packed=True, cs=2,
                                   scale=2, with_overlays=False)[0]
     k3kw = dict(OV_ARGS, packed_out=True)
-    fns["k3"] = lambda: fo.fused_overlays_planes(cap, 1.0, **k3kw)
+    fns["k3"] = lambda: fo.fused_overlays_planes(cap, tm1, **k3kw)
     fns["k3_plain"] = lambda: fo.fused_overlays_reference(cap, 1.0, **k3kw)
     bounds["K3"] = bound(h * w * (4 + 12), h * w * 60)
     # one output (the per-scope route): focus peaking alone
     fp_only = dict(k3kw, outputs=(False, False, True))
-    fns["k3_fp"] = lambda: fo.fused_overlays_planes(cap, 1.0, **fp_only)
+    fns["k3_fp"] = lambda: fo.fused_overlays_planes(cap, tm1, **fp_only)
     fns["k3_fp_plain"] = lambda: fo.fused_overlays_reference(cap, 1.0, **fp_only)
     bounds["K3 one output"] = bound(h * w * (4 + 4), h * w * 25)
     # and at full resolution (the dock with overlays_on_capture=False)
     full = as_input(make_frame(H4K, W4K, "random", 4), False, device)
-    fns["k3_fullres"] = lambda: fo.fused_overlays_planes(full, 1.0, **k3kw)
+    fns["k3_fullres"] = lambda: fo.fused_overlays_planes(full, tm1, **k3kw)
     fns["k3_fullres_plain"] = lambda: fo.fused_overlays_reference(full, 1.0, **k3kw)
     bounds["K3 full-res"] = bound(H4K * W4K * (4 + 12), H4K * W4K * 60)
     # K6 / K8: the ROI run's crop, RGB family both counts and YUV waveform
@@ -1020,9 +1234,34 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     dyn = make_dock_step(H4K, W4K, scale=2, input_format="nv12", dynamic_roi=True,
                          dock=DockConfig(show_focuspeaking=True), device=device)
     roi_t = torch.tensor(ROI, dtype=torch.int32, device=device)
-    graph, _ = capture_graph(dyn, (y, uv), roi_t)
-    fns["dock_nv12_dynamic"] = lambda: dyn((y, uv), 1.0, roi_t)
-    fns["dock_nv12_dynamic_graph"] = graph.replay
+    fns["dock_nv12_dynamic"] = lambda: dyn.eager((y, uv), 1.0, roi_t)
+    fns["dock_nv12_dynamic_graph"] = lambda: dyn((y, uv), 1.0, roi_t)
+    # the settled streaming Dock: a push and a render (the replay and the
+    # publication), and its captured stream step's function eagerly
+    dock = settled_dock(device, (y, uv))
+    wv = dock.waveform
+    fns["dock_settled"] = lambda: (dock.push_nv12(y, uv), dock.render_async())
+    fns["dock_settled_eager"] = lambda: dock._settled.eager((y, uv), 1.0, wv._buf[wv._r_buf])
+    # the batched step at B = 1, 2, 4 on 4K packed frames, eager and replayed
+    bsteps = {}
+    for b in (1, 2, 4):
+        _, batch, tms = batch_input(H4K, W4K, "packed", b, 1100, device)
+        bsteps[b] = (make_batched_step(H4K, W4K, scale=2, input_format="packed",
+                                       device=device), batch, tms)
+        fns[f"batched_{b}"] = lambda b=b: bsteps[b][0](*bsteps[b][1:])
+        fns[f"batched_{b}_eager"] = lambda b=b: bsteps[b][0].eager(*bsteps[b][1:])
+    # the batched kernels: K1 and K2 on the B = 4 batch (its overlay+scale
+    # pass, and K2 on its 1920x1080 captures), K4 / K5 on B = 2 NV12 / P010
+    b4 = bsteps[4][1]
+    fns["k1_b4"] = lambda: pl.frame_pass(b4, bsteps[4][2], **kw)
+    k2_b4 = pl.stats_inputs(*pl.frame_pass(b4, bsteps[4][2], **kw)[:2], False)
+    fns["k2_b4"] = lambda: ss.vs_wv_counts(*k2_b4)
+    _, (yb, uvb), _ = batch_input(H4K, W4K, "nv12", 2, 1200, device)
+    y16b, uv16b = (torch.stack([t, t]) for t in (y16, uv16))
+    fns["k4_b2"] = lambda: dec.nv12_decode(yb, uvb, cs=2)
+    fns["k5_b2"] = lambda: dec.nv12_16_decode(y16b, uv16b, cs=2, shift=8)
+    bounds["K1 b4"] = tuple(v * 4 if i == 0 else v for i, v in enumerate(bounds["K1"]))
+    bounds["K2 b4"] = tuple(v * 4 if i == 0 else v for i, v in enumerate(bounds["K2"]))
     k2r_in = pl.stats_inputs(*pl.frame_pass_reference(cv.nv12_packed_reference(y, uv, 2),
                                                       packed=True, cs=2, scale=2,
                                                       with_overlays=False)[:2], False)
@@ -1030,7 +1269,7 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     fns["k2_rect_plain"] = lambda: ss.vs_wv_counts_reference(*k2r_in, rect=roi_t)
     fns["k2_rect_library"], check = library_counts(*k2r_in, rect=roi_t)
     check("K2 rect library")
-    fns["k3_rect"] = lambda: fo.fused_overlays_planes(cap, 1.0, rect=roi_t, **k3kw)
+    fns["k3_rect"] = lambda: fo.fused_overlays_planes(cap, tm1, rect=roi_t, **k3kw)
     fns["k3_rect_plain"] = lambda: fo.fused_overlays_reference(cap, 1.0, rect=roi_t, **k3kw)
     rect_px = (ROI[2] - ROI[0]) * (ROI[3] - ROI[1])
     bounds["K2 rect"] = bound(rect_px * 6 + 65536 * 4 + 3 * 256 * w * 4, rect_px * 10)
@@ -1038,6 +1277,10 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     t = time_ms(fns)
     for k, v in t.items():
         print(f"time {k}: {v:.4f} ms  [{card}]", flush=True)
+    for b in bsteps:
+        for k in (f"batched_{b}", f"batched_{b}_eager"):
+            t[k + "_per_frame"] = t[k] / b
+            print(f"time {k} per frame: {t[k] / b:.4f} ms  [{card}]", flush=True)
     # K3's shapes once more with the L2 flushed before each call: the 1080p
     # capture and its outputs (33 MB) fit the 50 MB L2, so a replay loop can
     # read them below the HBM bound
@@ -1169,30 +1412,39 @@ def profile_window(step, frame, label: str, card: str, steps: int = 10) -> None:
 
 
 def phase_profile(device, card: str) -> None:
+    """Profiler windows over each step, replayed and (but the Dock) eager:
+    the device's busy share of the window is the replay's gain to read."""
     import torch
 
-    from obs_color_monitor_tpu_torch import DockConfig, make_dock_step, make_full_step
-    from obs_color_monitor_tpu_torch.config import ROIConfig
-    from obs_color_monitor_tpu_torch.models import Dock
+    from obs_color_monitor_tpu_torch import (
+        DockConfig, make_batched_step, make_dock_step, make_full_step)
 
-    profile_window(make_full_step(H4K, W4K, scale=2, input_format="packed", device=device),
-                   as_input(make_frame(H4K, W4K, "random", 3), True, device), "full_step",
-                   card)
-    profile_window(make_dock_step(H4K, W4K, scale=2, input_format="nv12",
-                                  dock=DockConfig(show_focuspeaking=True), device=device),
-                   to_device(make_nv12(H4K, W4K, 5), device), "dock_nv12", card)
-    profile_window(make_dock_step(H4K, W4K, scale=2, input_format="nv12", nv12_shift=8,
-                                  dock=DockConfig(show_focuspeaking=True), device=device),
-                   to_device(make_nv12(H4K, W4K, 6, 10, True), device), "dock_p010", card)
+    full = make_full_step(H4K, W4K, scale=2, input_format="packed", device=device)
+    x = as_input(make_frame(H4K, W4K, "random", 3), True, device)
+    dock = make_dock_step(H4K, W4K, scale=2, input_format="nv12",
+                          dock=DockConfig(show_focuspeaking=True), device=device)
+    nv12 = to_device(make_nv12(H4K, W4K, 5), device)
+    p010 = make_dock_step(H4K, W4K, scale=2, input_format="nv12", nv12_shift=8,
+                          dock=DockConfig(show_focuspeaking=True), device=device)
     dyn = make_dock_step(H4K, W4K, scale=2, input_format="nv12", dynamic_roi=True,
                          dock=DockConfig(show_focuspeaking=True), device=device)
     roi_t = torch.tensor(ROI, dtype=torch.int32, device=device)
-    nv12 = to_device(make_nv12(H4K, W4K, 5), device)
-    profile_window(lambda f, tm: dyn(f, tm, roi_t), nv12, "dock_nv12_dynamic", card)
+    _, batch, tms = batch_input(H4K, W4K, "packed", 4, 1100, device)
+    batched = make_batched_step(H4K, W4K, scale=2, input_format="packed", device=device)
+    for label, fn, frame in (
+        ("full_step", full, x), ("full_step eager", full.eager, x),
+        ("dock_nv12", dock, nv12), ("dock_nv12 eager", dock.eager, nv12),
+        ("dock_p010", p010, to_device(make_nv12(H4K, W4K, 6, 10, True), device)),
+        ("dock_nv12_dynamic", lambda f, tm: dyn(f, tm, roi_t), nv12),
+        ("dock_nv12_dynamic eager", lambda f, tm: dyn.eager(f, tm, roi_t), nv12),
+        ("batched B=4", lambda f, tm: batched(f, tms), batch),
+        ("batched B=4 eager", lambda f, tm: batched.eager(f, tms), batch),
+    ):
+        profile_window(fn, frame, label, card)
     # the streaming Dock in steady state: a push and a render per frame
-    dock = Dock(DockConfig(show_focuspeaking=True), roi=ROIConfig(interleave=0), device=device)
-    profile_window(lambda f, tm: (dock.push_nv12(*f), dock.render_async())[1], nv12,
-                   "models.Dock nv12", card)
+    sdock = settled_dock(device, nv12)
+    profile_window(lambda f, tm: (sdock.push_nv12(*f), sdock.render_async())[1], nv12,
+                   "models.Dock nv12 settled", card)
 
 
 KERNELS = [  # id, wrapper, source, TPU kernel it replaces, timing key, library key
@@ -1217,6 +1469,9 @@ SOURCES = {"K9": ("frame_pipeline.cu", "scope_stats.cu")}
 # the wrapper counts of calls in the fast form (K9's are its two wrappers')
 FAST = {"K1": ("K1 vec",), "K2": ("K2 vec",), "K3": ("K3 vec",), "K9": ("K9 vec",)}
 RECT_MODE = {"K2": ("k2_rect", "k2_rect_library"), "K3": ("k3_rect", None)}
+# the batched form: its timing key, batch size and bound key
+BATCHED = {"K1": ("k1_b4", 4, "K1 b4"), "K2": ("k2_b4", 4, "K2 b4"), "K4": ("k4_b2", 2, "K4 b2"),
+           "K5": ("k5_b2", 2, "K5 b2")}
 
 
 def kernel_line(launches: dict, by_path: dict, err: dict, t: dict, bounds: dict,
@@ -1270,6 +1525,14 @@ def kernel_line(launches: dict, by_path: dict, err: dict, t: dict, bounds: dict,
                           "flat_graph_ms": dev["k2_flat"][2]})
         if kid in SOURCES:
             entry["sources"] = [csrc + f for f in SOURCES[kid]]
+        if kid in BATCHED:
+            bkey, b, bb = BATCHED[kid]
+            entry["batched"] = {
+                "B": b, "ms": t[bkey], "device_ms": dev[bkey][0], "graph_ms": dev[bkey][2],
+                "bound_ms": bounds[bb][0], "bound_by": bounds[bb][1],
+                "launches": sum(c.get(kid, 0) for p, c in by_path.items()
+                                if p.startswith("batched")),
+            }
         if kid in RECT_MODE:
             rkey, rlib = RECT_MODE[kid]
             entry.update({
@@ -1285,6 +1548,7 @@ def kernel_line(launches: dict, by_path: dict, err: dict, t: dict, bounds: dict,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
@@ -1314,7 +1578,7 @@ def main() -> int:
     torch.cuda.synchronize()
     by_path = {**phase_main_path(device), **phase_dock_paths(device),
                **phase_ingest_path(device), **phase_dynamic_dock(device),
-               **phase_stream_dock(device)}
+               **phase_stream_dock(device), **phase_captured(device), **phase_batched(device)}
     launches: dict = {}
     for counts in by_path.values():
         for k, v in counts.items():
@@ -1328,6 +1592,7 @@ def main() -> int:
         raise AssertionError(f"the port loaded {loaded}")
 
     kernels = kernel_line(launches, by_path, err, t, bounds, dev)
+    print(f"chip_smoke: total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,7 @@ def inner(root: str) -> None:
     import torch
 
     from obs_color_monitor_tpu_torch.ops import fused_overlays as fo
+    from obs_color_monitor_tpu_torch.ops import overlays as ov
     from obs_color_monitor_tpu_torch.ops import pipeline as pl
     from obs_color_monitor_tpu_torch.ops import scope_stats as ss
 
@@ -48,9 +49,13 @@ def inner(root: str) -> None:
     card = cs.card_line()
     print(f"checkout {root}: {card}", flush=True)
     fns = {}
+    # the zebra clock as the checkout's K1 and K3 take it: a float32 in
+    # device memory where they read it there (a float would add a fill
+    # launch to every timed call), else a float
+    tm = torch.ones((), dtype=torch.float32, device=dev) if hasattr(ov, "clock_tensor") else 1.0
     kw = dict(packed=True, cs=2, scale=2, **cs.OV_ARGS)
     x = cs.as_input(cs.make_frame(cs.H4K, cs.W4K, "random", 3), True, dev)
-    fns["k1_overlay_scale"] = lambda: pl.frame_pass(x, 1.0, **kw)
+    fns["k1_overlay_scale"] = lambda: pl.frame_pass(x, tm, **kw)
     fns["k1_scale"] = lambda: pl.frame_pass(x, 1.0, **dict(kw, with_overlays=False))
     roi = torch.tensor(cs.ROI, dtype=torch.int32, device=dev)
     empty = torch.zeros(4, dtype=torch.int32, device=dev)
@@ -68,11 +73,11 @@ def inner(root: str) -> None:
     full = cs.as_input(cs.make_frame(cs.H4K, cs.W4K, "random", 4), False, dev)
     k3kw = dict(cs.OV_ARGS, packed_out=True)
     k3 = {
-        "k3": lambda: fo.fused_overlays_planes(cap, 1.0, **k3kw),
-        "k3_rect": lambda: fo.fused_overlays_planes(cap, 1.0, rect=roi, **k3kw),
-        "k3_fp": lambda: fo.fused_overlays_planes(cap, 1.0, outputs=(False, False, True),
+        "k3": lambda: fo.fused_overlays_planes(cap, tm, **k3kw),
+        "k3_rect": lambda: fo.fused_overlays_planes(cap, tm, rect=roi, **k3kw),
+        "k3_fp": lambda: fo.fused_overlays_planes(cap, tm, outputs=(False, False, True),
                                                   **k3kw),
-        "k3_fullres": lambda: fo.fused_overlays_planes(full, 1.0, **k3kw),
+        "k3_fullres": lambda: fo.fused_overlays_planes(full, tm, **k3kw),
     }
     fns.update(k3)
     for k, v in cs.time_ms(fns).items():

@@ -8,9 +8,12 @@ copies of the numpy spec modules (``colorspace``, ``config``, ``golden``,
 ``utils/draw``).
 
 Layout:
-  api.py        make_full_step / ScopeOutputs (the six-scope step)
+  api.py        make_full_step / make_batched_step / ScopeOutputs (the
+                six-scope step, one frame or a batch)
   dock_step.py  make_dock_step / DockStepOutput (the one-panel dock, with
                 the dynamic ROI)
+  graphs.py     CapturedStep: a step captured once as a CUDA graph and
+                replayed (the counterpart of jax.jit)
   models/       CaptureHub, the six scopes, InteractiveROI and the streaming
                 Dock
   ops/          convert, overlays, stats, render, graticule (plain torch or
@@ -22,10 +25,12 @@ Layout:
 
 Every kernel wrapper picks its route from its input's device: a CPU tensor
 runs the plain PyTorch version, a CUDA tensor launches the kernel.  The
-entry points run on ``device="cuda"`` unless the caller asks for the CPU.
+entry points run on ``device="cuda"`` unless the caller asks for the CPU;
+there the steps are captured as CUDA graphs (``step.eager`` is the
+uncaptured function).
 """
 
-from .api import ScopeOutputs, frame_from_numpy, make_full_step
+from .api import ScopeOutputs, frame_from_numpy, make_batched_step, make_full_step
 from .colorspace import Colorspace, calc_colorspace
 from .config import (
     Components,
@@ -35,6 +40,7 @@ from .config import (
     FocusPeakingConfig,
     HistogramConfig,
     LevelMode,
+    ROIConfig,
     ShowKey,
     VectorscopeConfig,
     WaveformConfig,
@@ -59,11 +65,13 @@ __all__ = [
     "ZebraConfig",
     "FalseColorConfig",
     "FocusPeakingConfig",
+    "ROIConfig",
     "DockConfig",
     "from_reference",
     "ScopeOutputs",
     "frame_from_numpy",
     "make_full_step",
+    "make_batched_step",
     "DockStepOutput",
     "make_dock_step",
     "nv12_shift",

@@ -35,15 +35,16 @@ NVCC_FLAGS = (
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # C entry point -> argtypes (every pointer and the stream as c_void_p: a
 # plain int argument would be passed as 32 bits and cut the address)
 _SIGNATURES = {
-    "ocm_frame_pass": [_VP, _VP, _VP, ctypes.c_float, _VP, _VP, _VP, _VP, _VP, _VP],
-    "ocm_scope_stats": [_VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _I, _I, _VP, _VP, _VP,
-                        _I, _I, _VP],
-    "ocm_fused_overlays": [_VP, _VP, _VP, ctypes.c_float, _VP, _VP, _VP, _VP, _VP, _VP],
-    "ocm_nv12_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP],
-    "ocm_nv12_16_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],
+    "ocm_frame_pass": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP],
+    "ocm_scope_stats": [_VP, _VP, _VP, _VP, _LL, _VP, _VP, _I, _I, _VP, _VP, _VP,
+                        _I, _I, _I, _LL, _LL, _LL, _LL, _VP],
+    "ocm_fused_overlays": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
+    "ocm_nv12_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],
+    "ocm_nv12_16_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,15 @@
-"""High-level one-shot API: the full six-scope step.
+"""High-level one-shot API: the full six-scope step and its batched form.
 
 Counterpart of ``obs_color_monitor_tpu/api.py`` (``ScopeOutputs`` ``:34``,
-``make_full_step`` ``:46``).  One frame in, every scope's statistics and
-rendered images out.  On a CUDA device the step runs kernel K1 (the
-whole-frame pass), K2 (vectorscope + waveform counting) once per component
-family in use, K4/K5 in front of them for NV12/P010 input, and plain
-torch for the glue (saturation, histogram, hi_max, levels, renders).  On
-the CPU the same step runs the kernels' plain versions.
+``make_full_step`` ``:46``, ``make_batched_step`` ``:300``).  One frame in,
+every scope's statistics and rendered images out.  On a CUDA device the
+step runs kernel K1 (the whole-frame pass), K2 (vectorscope + waveform
+counting) once per component family in use, K4/K5 in front of them for
+NV12/P010 input, and plain torch for the glue (saturation, histogram,
+hi_max, levels, renders), all captured once as a CUDA graph and replayed
+(``graphs.py``, the counterpart of ``@jax.jit``).  The batched step runs
+each kernel once for the whole batch.  On the CPU the same steps run the
+kernels' plain versions, uncaptured.
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ def frame_from_numpy(arr, input_format: str, device):
     return torch.from_numpy(arr).to(device)
 
 
-def make_full_step(
+def _step_parts(
     height: int,
     width: int,
     cs: Colorspace = Colorspace.BT709,
@@ -94,23 +97,13 @@ def make_full_step(
     *,
     device="cuda",
 ):
-    """Build a (frame, tm) -> ScopeOutputs step for a fixed frame shape.
-
-    Statistics run on the ``scale``-downscaled frame (any integer scale);
-    overlays run at full resolution.  ``device`` is where the step runs
-    and where its frames must already be.  input_format:
-
-      * "rgba"   — (H, W, 4) u8, read as its packed view (no copy);
-      * "packed" — the (H, W) 32-bit view of the RGBA bytes, int32 or
-        uint32 (``frame_from_numpy`` / ``ops.convert.host_packed_view``);
-      * "planar" — (4, H, W) u8;
-      * "nv12"   — a (y (H, W), uv (H/2, W)) pair of u8 planes, decoded on
-        the device in colorimetry ``cs`` to the packed view; with
-        ``nv12_shift`` > 0, P010-family u16 planes, round-shifted to 8 bits
-        in the same decode (``ops.convert.nv12_shift``).
-
-    ``tm`` is the zebra stripe clock, a Python float.
-    """
+    """The full step's parts for a fixed frame shape, shared by the single
+    and the batched step: (device, frame shape, decode, kernels, glue,
+    use_lut).  ``decode``
+    turns the input (one frame or a batch) into K1's packed or planar
+    view; ``kernels`` runs K1 and K2 on it (a batch in one launch each) and
+    returns (vs, wv, hi counts, zebra, falsecolor, focuspeaking); ``glue``
+    makes one frame's ScopeOutputs from one frame's slices of those."""
     if input_format not in INPUT_FORMATS:
         raise ValueError(f"unknown input_format {input_format!r}")
     device = torch.device(device)
@@ -144,17 +137,14 @@ def make_full_step(
     frame_shape = {"rgba": (height, width, 4), "packed": (height, width),
                    "planar": (4, height, width), "nv12": (height, width)}[input_format]
 
-    def step(frame, tm: float) -> ScopeOutputs:
-        lead = frame[0] if input_format == "nv12" else frame
-        check_device(lead, device)
-        if tuple(lead.shape) != frame_shape:
-            raise ValueError(f"{input_format} frame must be {frame_shape}, got "
-                             f"{tuple(lead.shape)}")
-        x = frame
+    def decode(frame):
         if input_format == "nv12":
-            x = nv12_to_packed(frame[0], frame[1], cs=cs, shift=nv12_shift)
-        elif input_format == "rgba":
-            x = packed_view(frame)
+            return nv12_to_packed(frame[0], frame[1], cs=cs, shift=nv12_shift)
+        if input_format == "rgba":
+            return packed_view(frame)
+        return frame
+
+    def kernels(x, tm):
         ds, yuv, zb_img, fc_img, fp_img = frame_pass(x, tm, **pass_kw)
         # K2 once per component family in use (twice only when the
         # waveform and histogram families differ); the vectorscope is
@@ -162,12 +152,15 @@ def make_full_step(
         counts = {}
         for fam in {wv_yuv, hi_yuv}:
             counts[fam] = vs_wv_counts(*stats_inputs(ds, yuv, fam), need_vs=fam == wv_yuv)
-        vs_i32 = counts[wv_yuv][0]
+        return (counts[wv_yuv][0], counts[wv_yuv][1], counts[hi_yuv][1],
+                zb_img, fc_img, fp_img)
+
+    def glue(x, vs_i32, wv_i32, hi_wv_i32, zb_img, fc_img, fp_img) -> ScopeOutputs:
         vs_u8 = saturate_u8(vs_i32)
         vs_img = render_ops.render_vectorscope(
             vs_u8, intensity=vs_cfg.intensity, cs=cs, white=vs_cfg.color_type == 0
         )
-        wv_counts = apply_channel_select(saturate_u8(counts[wv_yuv][1]), wv_sel)
+        wv_counts = apply_channel_select(saturate_u8(wv_i32), wv_sel)
         wv_img = render_ops.render_waveform(
             wv_counts,
             intensity=wv_cfg.intensity,
@@ -175,7 +168,7 @@ def make_full_step(
             n_components=wv_cfg.components.n_components,
             yuv_mode=wv_yuv,
         )
-        hi_counts = apply_channel_select(histogram_from_waveform(counts[hi_yuv][1]), sel)
+        hi_counts = apply_channel_select(histogram_from_waveform(hi_wv_i32), sel)
         hi = histogram_hi_max(
             hi_counts, sel, n_scaled, hi_cfg.level_fixed, hi_cfg.level_ratio_permille
         )
@@ -203,4 +196,117 @@ def make_full_step(
             hi_counts=hi_counts.to(torch.uint32),
         )
 
-    return step
+    return device, frame_shape, decode, kernels, glue, use_lut
+
+
+def _check_frame(frame, input_format: str, frame_shape: tuple, device, lead: tuple = ()):
+    """Raise unless the step's input lies on ``device`` with ``lead`` +
+    ``frame_shape`` (the y plane's, for NV12)."""
+    planes = frame if input_format == "nv12" else (frame,)
+    for t in planes:
+        check_device(t, device)
+    if tuple(planes[0].shape) != (*lead, *frame_shape):
+        raise ValueError(f"{input_format} frame must be {(*lead, *frame_shape)}, got "
+                         f"{tuple(planes[0].shape)}")
+
+
+def make_full_step(
+    height: int,
+    width: int,
+    cs: Colorspace = Colorspace.BT709,
+    scale: int = 2,
+    vectorscope: VectorscopeConfig | None = None,
+    waveform: WaveformConfig | None = None,
+    histogram: HistogramConfig | None = None,
+    zebra: ZebraConfig | None = None,
+    falsecolor: FalseColorConfig | None = None,
+    focuspeaking: FocusPeakingConfig | None = None,
+    input_format: str = "rgba",
+    nv12_shift: int = 0,
+    *,
+    device="cuda",
+):
+    """Build a (frame, tm) -> ScopeOutputs step for a fixed frame shape.
+
+    Statistics run on the ``scale``-downscaled frame (any integer scale);
+    overlays run at full resolution.  ``device`` is where the step runs
+    and where its frames must already be.  input_format:
+
+      * "rgba"   — (H, W, 4) u8, read as its packed view (no copy);
+      * "packed" — the (H, W) 32-bit view of the RGBA bytes, int32 or
+        uint32 (``frame_from_numpy`` / ``ops.convert.host_packed_view``);
+      * "planar" — (4, H, W) u8;
+      * "nv12"   — a (y (H, W), uv (H/2, W)) pair of u8 planes, decoded on
+        the device in colorimetry ``cs`` to the packed view; with
+        ``nv12_shift`` > 0, P010-family u16 planes, round-shifted to 8 bits
+        in the same decode (``ops.convert.nv12_shift``).
+
+    ``tm`` is the zebra stripe clock, a Python float or a 0-d float32
+    tensor on ``device`` (the kernels read it from device memory).
+
+    On a CUDA device the step is captured as a CUDA graph on its first call
+    and replayed after (``graphs.CapturedStep``; one program per frame, as
+    ``@jax.jit`` makes it): each call copies the frame and ``tm`` into the
+    graph's buffers and returns fresh outputs.  ``step.eager`` is the
+    uncaptured step.
+    """
+    from .graphs import captured
+
+    device, frame_shape, decode, kernels, glue, _ = _step_parts(
+        height, width, cs, scale, vectorscope, waveform, histogram, zebra, falsecolor,
+        focuspeaking, input_format, nv12_shift, device=device)
+
+    def step(frame, tm) -> ScopeOutputs:
+        _check_frame(frame, input_format, frame_shape, device)
+        x = decode(frame)
+        return glue(x, *kernels(x, tm))
+
+    return captured(step, device)
+
+
+def make_batched_step(height: int, width: int, mesh=None, *, device="cuda", **kwargs):
+    """Multi-stream serving: (frames, tms (B,)) -> ScopeOutputs with a
+    leading B on every field (``api.make_batched_step``, JAX's ``vmap`` of
+    the step).
+
+    ``kwargs`` are :func:`make_full_step`'s.  ``frames`` is a batch in the
+    step's input format: (B, H, W, 4) u8 rgba, (B, H, W) packed, (B, 4, H, W)
+    planar, or an NV12/P010 pair ((B, H, W), (B, H/2, W)); ``tms`` a (B,)
+    float32 tensor on ``device``, frame b's zebra clock.  K4/K5, K1 and K2
+    each run once for the whole batch (the batch is their grid's frame
+    axis, as ``vmap`` adds a grid axis to a ``pallas_call``); the glue runs
+    frame by frame.  Frame b's outputs equal the full step's on frame b.
+    On a CUDA device the step is captured per B (``graphs.CapturedStep``);
+    ``step.eager`` is the uncaptured step.  ``mesh`` (the JAX batch-sharded
+    route) is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_batched_step(mesh=...): the sharded batch waits for parallel/mesh "
+            "(ROADMAP.md Queue 1, item 4)")
+    from .graphs import captured
+
+    input_format = kwargs.get("input_format", "rgba")
+    device, frame_shape, decode, kernels, glue, use_lut = _step_parts(
+        height, width, device=device, **kwargs)
+
+    def step(frames, tms) -> ScopeOutputs:
+        lead = frames[0] if input_format == "nv12" else frames
+        if lead.ndim != len(frame_shape) + 1 or lead.shape[0] < 1:
+            raise ValueError(f"frames must be (B, {', '.join(map(str, frame_shape))}), got "
+                             f"{tuple(lead.shape)}")
+        b = lead.shape[0]
+        _check_frame(frames, input_format, frame_shape, device, (b,))
+        if not isinstance(tms, torch.Tensor) or tuple(tms.shape) != (b,):
+            raise ValueError(f"tms must be a ({b},) float32 tensor")
+        x = decode(frames)
+        parts = kernels(x, tms)
+        outs = [glue(x[i], *(t[i] for t in parts)) for i in range(b)]
+        # K1's overlay planes are batched already (the user-LUT false colour
+        # is the glue's); the glue's per-frame outputs are stacked
+        batched = dict(zebra=parts[3], focuspeaking=parts[5])
+        if not use_lut:
+            batched["falsecolor"] = parts[4]
+        return ScopeOutputs(*(batched[k] if k in batched else torch.stack(f)
+                              for k, f in zip(ScopeOutputs._fields, zip(*outs))))
+
+    return captured(step, device)

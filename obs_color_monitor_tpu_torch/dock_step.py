@@ -10,7 +10,9 @@ the composite.  Layout is static, so the composite is slices and small
 nearest-resize gathers.  With ``dynamic_roi=True`` (the JAX step_dyn,
 ``:485-710``) the ROI is a (4,) int32 device tensor that K2 and K3 read on
 the device and the slot samplers gather by: a new rect changes no launch
-and no host work.
+and no host work.  On a CUDA device the step is captured once as a CUDA
+graph and replayed (``graphs.CapturedStep``, the counterpart of the JAX
+step's ``@jax.jit``).
 """
 
 from __future__ import annotations
@@ -280,7 +282,8 @@ def make_dock_step(
     reference dock) runs the overlays on the scaled, cropped capture; False
     runs them on the full-resolution frame.  ``roi_rect`` is a static ROI
     (x0, y0, x1, y1) in scaled coordinates.  ``tm`` is the zebra stripe
-    clock, a Python float.
+    clock, a Python float or a 0-d float32 tensor on ``device`` (K3 reads
+    it from device memory).
 
     ``dynamic_roi=True`` takes the ROI per frame as ``rect``, a (4,) int32
     tensor on ``device`` in scaled coordinates, clamped as
@@ -292,7 +295,16 @@ def make_dock_step(
     reads the rect on the host, so every rect runs the same launches with
     the same shapes (a CUDA graph of one step replays for any rect).  It
     excludes ``roi_rect`` and needs ``overlays_on_capture=True``.
+
+    On a CUDA device the returned step is captured as a CUDA graph on its
+    first call and replayed after (``graphs.CapturedStep``): each call
+    copies the frame, ``tm`` and the rect into the graph's buffers (the
+    captured dynamic step also takes the rect as 4 host ints, written with
+    ``fill_``) and returns fresh outputs.  ``step.eager`` is the uncaptured
+    step; ``step.rects`` and ``step.dims`` are the static layout.
     """
+    from .graphs import captured
+
     if input_format not in ("rgba", "nv12"):
         raise ValueError(f"unknown input_format {input_format!r}")
     device = torch.device(device)
@@ -570,9 +582,7 @@ def make_dock_step(
                 planes=res.planes,
             )
 
-        step_dyn.rects = dict(rects)
-        step_dyn.dims = dict(dims)
-        return step_dyn
+        return captured(step_dyn, device, rects=dict(rects), dims=dict(dims))
 
     def step(frame, tm: float) -> DockStepOutput:
         src = source(frame)
@@ -634,6 +644,4 @@ def make_dock_step(
             hi_counts=hi_counts.to(torch.uint32),
         )
 
-    step.rects = dict(rects)
-    step.dims = dict(dims)
-    return step
+    return captured(step, device, rects=dict(rects), dims=dict(dims))

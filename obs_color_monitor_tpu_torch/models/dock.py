@@ -9,16 +9,20 @@ with per-scope aspect rules (src/scope-widget.cpp:99-175).  Here the Dock
 owns a CaptureHub with the six scopes registered; ``render`` composites the
 shown ones on the device and fetches the panel once.
 
-The JAX Dock caches several XLA programs (a fused render, a one-program
-stream step per layout, the dock step) because each program execution
-costs a dispatch round trip.  Here a frame is one fixed sequence of
-launches, so there is one route where JAX has several that give the same
-panel: a settled rect takes the hub fan-out, the scope renders and the
-composite; a rect that moves (a drag, or a rect just changed) takes the
-dynamic-ROI dock step, which serves every rect with the same launches.
-What a caller can observe is kept: which frame's statistics a scope read
-shows after a push, a flush or a render, the frame counters, interleave,
-bypass, the mouse routing and the mid-drag publication.
+The JAX Dock caches XLA programs (a fused render, a one-program stream
+step per layout, the dock step) because each program execution costs a
+dispatch round trip.  Here the streaming Dock replays CUDA graphs
+(``graphs.CapturedStep``): a settled rect replays the stream step, the
+analysis, the shown scopes' renders and the composite captured once per
+layout, frame shape, configs and rect (``models/dock.py:773-848``); a rect
+that moves (a drag, or a rect just changed) replays the captured
+dynamic-ROI dock step, which serves every rect with one graph.  Host work
+stays outside the graphs: interleave, the frame counters, the mouse
+routing and the publication of each frame's results to the scopes, as
+fresh tensors.  What a caller can observe is kept: which frame's
+statistics a scope read shows after a push, a flush or a render, the
+frame counters, interleave, bypass, the mouse routing and the mid-drag
+publication.
 """
 
 from __future__ import annotations
@@ -41,8 +45,15 @@ from ..config import (
 )
 from ..dock_step import SCOPE_ORDER, _resize_nearest_rgba, compose_vstack, make_dock_step
 from ..dock_step import shaded_preview as _shaded_preview
-from ..ops.convert import OPAQUE_BLACK, host_packed_view, nv12_device_planes, planes_to_rgba
-from ..ops.fused import AnalysisResult
+from ..graphs import captured
+from ..ops.convert import (
+    OPAQUE_BLACK,
+    host_packed_view,
+    nv12_device_planes,
+    nv12_to_packed,
+    planes_to_rgba,
+)
+from ..ops.fused import AnalysisResult, analyze
 from .base import CaptureHub, Needs, Scope, SurfaceData
 from .histogram import Histogram
 from .overlays import FalseColor, FocusPeaking, Zebra, shared_overlay_images
@@ -185,6 +196,9 @@ class Dock:
         self._leaves_rect = None
         self._device_step = None
         self._device_step_key = None
+        # the captured stream step of the settled route and its key
+        self._settled = None
+        self._settled_key = None
 
     def shown(self, name: str) -> bool:
         return bool(getattr(self.config, f"show_{name}"))
@@ -289,12 +303,23 @@ class Dock:
         self._rendered_since_push = True
         shown = [n for n in SCOPE_ORDER if self.shown(n)]
         if self._pending is not None:
-            panel = self._consume_stream(cx, cy)
+            panel = self._consume_stream(cx, cy, shown)
             if panel is not None:
                 return panel
             # the frame was processed or skipped: render the published buffers
-        self._rects = {}
         self._set_roi_view()
+        panel, self._rects, all_shown = self._composite(cx, cy, shown)
+        if all_shown and not any(getattr(self.scopes[n].config, "bypass", False)
+                                 for n in shown):
+            self._warm = True
+        return panel
+
+    def _composite(self, cx: int, cy: int, shown: list):
+        """The shown scopes' renders of the published buffers, composited:
+        (panel, {name: its display rect}, whether every shown scope had
+        data).  Device work only: it reads the scopes' state and changes
+        none (the settled route captures it)."""
+        rects = {}
         patches = []
         all_shown = True
         y0 = 0
@@ -333,15 +358,12 @@ class Dock:
                 else:
                     patch = img[crop[0] : crop[0] + h, crop[1] : crop[1] + w]
                 patches.append((x0, y0, patch))
-                self._rects[name] = (x0, y0, w, h, w_src, h_src)
+                rects[name] = (x0, y0, w, h, w_src, h_src)
             y0 += h_slot
-        if all_shown and not any(getattr(self.scopes[n].config, "bypass", False)
-                                 for n in shown):
-            self._warm = True
         if not patches:
             black = torch.full((cy, cx), OPAQUE_BLACK, dtype=torch.int32, device=self.device)
-            return black.view(torch.uint8).view(cy, cx, 4)
-        return compose_vstack(patches, cx, cy)
+            return black.view(torch.uint8).view(cy, cx, 4), rects, all_shown
+        return compose_vstack(patches, cx, cy), rects, all_shown
 
     def _frame_dims(self, frame) -> tuple[int, int]:
         """(h, w) of a pending frame: NV12, packed (H, W) or (H, W, 4)."""
@@ -352,13 +374,14 @@ class Dock:
             return frame.shape[-2], frame.shape[-1]
         return frame.shape[-3], frame.shape[-2]
 
-    def _consume_stream(self, cx: int, cy: int):
+    def _consume_stream(self, cx: int, cy: int, shown: list):
         """The deferred frame of a streaming render: interleave, then either
-        the dynamic-ROI step (the rect is moving) or the hub fan-out
-        (``models/dock.py:597-771``, whose one-program stream step gives the
-        same panel and publication as the fan-out).  Returns the panel of
-        the dynamic step, or None when the caller renders the published
-        buffers."""
+        the dynamic-ROI step (the rect is moving) or the settled route's
+        captured stream step (``models/dock.py:597-771``), which gives the
+        panel and publication of the hub fan-out.  Returns the panel, or
+        None when the caller renders the published buffers (a skipped
+        frame, or one processed by the hub fan-out: the published buffers
+        belong to another rect, or the waveform has no published frame)."""
         frame, self._pending = self._pending, None
         hub = self.hub
         hub._rendered = True
@@ -379,9 +402,93 @@ class Dock:
         self._last_stream_rect = rect
         if moving:
             return self._consume_dynamic(frame, cx, cy, rect)
+        wv = self.waveform
+        if self._leaves_rect == rect and wv._buf[wv._r_buf] is not None:
+            return self._consume_settled(frame, cx, cy, shown, rect)
+        # the published buffers belong to another rect (a just-settled drag
+        # published full-capture ones) or the waveform's read buffer is
+        # empty: one fan-out frame republishes every scope at this rect
         self._hub_process(frame)
         self._leaves_rect = rect
         return None
+
+    def _consume_settled(self, frame, cx: int, cy: int, shown: list, rect):
+        """A settled frame through the captured stream step: analysis, the
+        shown scopes' renders of that analysis and the composite replayed as
+        one graph (captured once per layout, frame shape, configs, rect and
+        the waveform's read buffer), then the analysis published to every
+        consumer as the hub fan-out publishes it, in fresh tensors.  The
+        waveform shows the frame before (its tick-gated read buffer, a graph
+        input), as on the fan-out route."""
+        hub = self.hub
+        wv = self.waveform
+        sw, sh = hub.capture_size
+        full = rect == (0, 0, sw, sh)
+        nv12 = isinstance(frame, _NV12Pending)
+        arg = (frame.y, frame.uv) if nv12 else hub.to_device(frame)
+        key = (cx, cy, tuple(shown), rect, (sw, sh), hub.config.target_scale,
+               int(hub.colorspace), (frame.cs, frame.shift) if nv12 else None,
+               self._device_confkey(True), wv._buf_width[wv._r_buf], wv._buf_rect[wv._r_buf])
+        if key != self._settled_key:
+            self._settled = self._settled_step(cx, cy, shown, rect, full, frame)
+            self._settled_key = key
+        panel, result = self._settled(arg, float(self.zebra.tm), wv._buf[wv._r_buf])
+        surface = SurfaceData(result=result, width=rect[2] - rect[0], height=rect[3] - rect[1],
+                              colorspace=hub.colorspace, cropped=not full)
+        hub.published_rect = rect
+        hub.last_surface = surface
+        for c in hub.consumers:
+            c.surface_cb(surface)
+        hub.frames_processed += 1
+        self._leaves_rect = rect
+        self._set_roi_view()
+        self._rects = dict(self._settled.rects)
+        return panel
+
+    def _settled_step(self, cx: int, cy: int, shown: list, rect, full: bool, frame):
+        """The settled route's stream step, ``(frame, tm, wv_prev) ->
+        (panel, AnalysisResult)``, captured on a card: the hub's analysis
+        (K4/K5, K1, K2), every consumer's surface_cb on it, the shown
+        scopes' renders (one K3 launch for the overlays) and the
+        composite.  The scopes' buffers and the Zebra's clock are set for
+        the renders and restored after, so only the returned tensors carry
+        the frame out (``models/dock.py:773-848`` replays the same code at
+        trace time)."""
+        hub = self.hub
+        consumers = list(hub.consumers)
+        needs = hub.union_needs()
+        cs = hub.colorspace
+        scale = hub.config.target_scale
+        wv, zebra = self.waveform, self.zebra
+        surface_dims = dict(width=rect[2] - rect[0], height=rect[3] - rect[1])
+        decode = None
+        if isinstance(frame, _NV12Pending):
+            decode = dict(cs=frame.cs, shift=frame.shift)
+
+        def settled(x, tm, wv_prev):
+            if decode is not None:
+                x = nv12_to_packed(x[0], x[1], **decode)
+            res = analyze(x, cs=int(cs), scale=scale, rect=None if full else rect,
+                          need_vs=needs.vs, need_wv_rgb=needs.wv_rgb, need_wv_yuv=needs.wv_yuv,
+                          need_hi_rgb=needs.hi_rgb, need_hi_yuv=needs.hi_yuv)
+            surface = SurfaceData(result=res, colorspace=cs, cropped=not full, **surface_dims)
+            saved = [(c, list(c._buf), c._w_buf) for c in consumers]
+            clock = zebra.tm
+            try:
+                for c in consumers:
+                    c.surface_cb(surface)
+                wv._buf[wv._r_buf] = wv_prev  # the tick-gated read buffer
+                zebra.tm = tm
+                panel, rects, _ = self._composite(cx, cy, shown)
+            finally:
+                for c, buf, w_buf in saved:
+                    c._buf, c._w_buf = buf, w_buf
+                zebra.tm = clock
+            step.rects = rects
+            return panel, res
+
+        step = captured(settled, self.device, max_graphs=1)
+        return step
 
     def _consume_dynamic(self, frame, cx: int, cy: int, rect):
         """A mid-drag or just-changed-rect frame through the dynamic-ROI
@@ -487,8 +594,8 @@ class Dock:
             self._device_step_key = key
         if full:
             return self._device_step(arg, tm)
-        rect_t = torch.tensor(rect, dtype=torch.int32, device=self.device)
-        return self._device_step(arg, tm, rect_t)
+        # the rect's four ints go into the captured step's rect buffer
+        return self._device_step(arg, tm, tuple(rect))
 
     # -- mouse routing (reference src/scope-widget.cpp:241-428) --------------
     def _hit(self, x: int, y: int):

@@ -36,9 +36,10 @@ def as_packed(x: torch.Tensor) -> torch.Tensor:
 
 
 def packed_view(frame: torch.Tensor) -> torch.Tensor:
-    """The (H, W) int32 packed view of an (H, W, 4) u8 RGBA frame (the same
-    bytes, no copy); a packed frame passes through :func:`as_packed`."""
-    if frame.ndim == 3 and frame.shape[-1] == 4 and frame.dtype == torch.uint8:
+    """The (..., H, W) int32 packed view of an (..., H, W, 4) u8 RGBA frame
+    or batch (the same bytes, no copy); a packed frame passes through
+    :func:`as_packed`."""
+    if frame.ndim >= 3 and frame.shape[-1] == 4 and frame.dtype == torch.uint8:
         return frame.view(torch.int32).squeeze(-1)
     return as_packed(frame)
 
@@ -213,7 +214,8 @@ _NV12_KY = 4769  # round(255/219 * 4096)
 
 def check_nv12(y: torch.Tensor, uv: torch.Tensor, shift: int = 0) -> None:
     """Raise unless (y, uv) is an NV12 plane pair the decode takes: H and W
-    even, ``uv.shape == (H/2, W)`` (``ValueError``); u8 planes without
+    even, ``uv.shape == (H/2, W)``, or a batch of pairs with a leading B on
+    both (``ValueError``); u8 planes without
     ``shift``, u16 planes with it (``TypeError``, ``convert.nv12_to_packed``
     ``:410-428``: a forgotten shift on a P010-family buffer must fail, not
     decode raw 16-bit samples)."""
@@ -225,8 +227,9 @@ def check_nv12(y: torch.Tensor, uv: torch.Tensor, shift: int = 0) -> None:
     elif y.dtype != torch.uint8 or uv.dtype != torch.uint8:
         raise TypeError(f"NV12 planes must be u8 (pass shift= for 16-bit layouts), "
                         f"got {y.dtype}/{uv.dtype}")
-    if y.ndim != 2 or y.shape[0] % 2 or y.shape[1] % 2 or tuple(uv.shape) != (
-        y.shape[0] // 2, y.shape[1]
+    # (H, W), or a batch (B, H, W) with (B, H/2, W) chroma
+    if y.ndim not in (2, 3) or y.shape[-2] % 2 or y.shape[-1] % 2 or tuple(uv.shape) != (
+        *y.shape[:-2], y.shape[-2] // 2, y.shape[-1]
     ):
         raise ValueError(f"bad NV12 geometry: y {tuple(y.shape)}, uv {tuple(uv.shape)}")
 
@@ -262,8 +265,11 @@ def nv12_to_planes(y: torch.Tensor, uv: torch.Tensor, cs: int = 2) -> torch.Tens
 
 def nv12_packed_reference(y: torch.Tensor, uv: torch.Tensor, cs: int = 2) -> torch.Tensor:
     """Plain version of kernel K4: NV12 u8 planes -> the (H, W) int32 packed
-    RGBA view ``r | g << 8 | b << 16 | 0xFF000000``."""
+    RGBA view ``r | g << 8 | b << 16 | 0xFF000000``; a batch frame by
+    frame, (B, H, W) out."""
     check_nv12(y, uv)
+    if y.ndim == 3:
+        return torch.stack([nv12_packed_reference(a, b, cs) for a, b in zip(y, uv)])
     return _pack_rgb(*_nv12_rgb_u8(y, uv, cs))
 
 
@@ -284,8 +290,12 @@ def nv12_16_packed_reference(
     y16: torch.Tensor, uv16: torch.Tensor, cs: int = 2, shift: int = 2
 ) -> torch.Tensor:
     """Plain version of kernel K5: P010-family u16 planes, round-shifted to
-    8 bits, then the K4 decode (``convert._nv12_16_to_packed_xla``)."""
+    8 bits, then the K4 decode (``convert._nv12_16_to_packed_xla``); a
+    batch frame by frame."""
     check_nv12(y16, uv16, shift)
+    if y16.ndim == 3:
+        return torch.stack([nv12_16_packed_reference(a, b, cs, shift)
+                            for a, b in zip(y16, uv16)])
     return _pack_rgb(*_nv12_rgb_u8(_shift16_to_u8(y16, shift), _shift16_to_u8(uv16, shift), cs))
 
 
@@ -304,8 +314,9 @@ def nv12_to_packed(
     y: torch.Tensor, uv: torch.Tensor, cs: int = 2, shift: int = 0
 ) -> torch.Tensor:
     """NV12 -> the (H, W) int32 packed-RGBA view, decoded on the planes'
-    device (``convert.nv12_to_packed``).  ``shift`` > 0 takes P010-family
-    u16 planes and fuses the round-shift into the decode
+    device (``convert.nv12_to_packed``); a batch of (B, H, W) and
+    (B, H/2, W) planes decodes in one launch to (B, H, W).  ``shift`` > 0
+    takes P010-family u16 planes and fuses the round-shift into the decode
     (:func:`nv12_shift`).  Kernel K5 runs for ``shift`` > 0, K4 otherwise
     (``ops/decode.py``), each checking its planes; a CPU tensor runs their
     plain versions."""

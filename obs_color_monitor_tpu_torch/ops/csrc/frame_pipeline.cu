@@ -35,6 +35,12 @@
 //     adjacent output pixels, with 16-byte (packed) or 8-byte (planar)
 //     loads of the texels at scales 1 and 2, and 4-byte stores per plane.
 // The wrapper (ops/pipeline.py::frame_plan) picks the forms and the grids.
+//
+// A batch of B frames runs in one launch, as vmap adds a grid axis to the
+// pallas_call: blockIdx.z is the frame, and every frame's input and outputs
+// lie one frame's size after the previous one's (the wrapper makes them
+// contiguous).  The zebra clock is read from device memory, tm[b], so a
+// CUDA graph of the step replays any clock.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -89,6 +95,14 @@ __device__ __forceinline__ void store_scaled(const PassParams& p, uint8_t* __res
   }
 }
 
+// Frame b of a contiguous batch of `plane`-pixel frames: packed 32-bit
+// words or 4 planes of bytes.
+template <bool PACKED>
+__device__ __forceinline__ const void* frame_at(const void* frames, size_t plane, int b) {
+  return PACKED ? (const void*)((const uint32_t*)frames + plane * b)
+                : (const void*)((const uint8_t*)frames + 4 * plane * b);
+}
+
 // ---- tile launch: overlays, and at scale 2 the scaled planes ----
 // (the tile with its halo in shared memory: tile_pass.cuh's load_tile and
 // read_run)
@@ -97,19 +111,26 @@ __device__ __forceinline__ void store_scaled(const PassParams& p, uint8_t* __res
 // faster than 3 blocks of 80 registers, which spill none)
 template <bool PACKED, bool VEC, bool FUSED>
 __global__ void __launch_bounds__(TILE_THREADS, 4)
-tile_kernel(const void* __restrict__ frame, const OverlayParams op, const PassParams p,
-            const float tm, uint8_t* __restrict__ zb, uint8_t* __restrict__ fc,
+tile_kernel(const void* __restrict__ frames, const OverlayParams op, const PassParams p,
+            const float* __restrict__ tms, uint8_t* __restrict__ zb, uint8_t* __restrict__ fc,
             uint8_t* __restrict__ fp, uint8_t* __restrict__ ds, uint8_t* __restrict__ yuv) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ uint32_t fc_table[12];  // false colour's band colours, RGBA words
   const int H = p.h4, W = p.w4;
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  // frame fr of the batch: its input, its outputs and its clock
+  const int fr = blockIdx.z;
+  const size_t plane = (size_t)H * W;
+  const void* frame = frame_at<PACKED>(frames, plane, fr);
+  zb += 4 * plane * fr;
+  fc += 4 * plane * fr;
+  fp += 4 * plane * fr;
+  const float tm = __ldg(tms + fr);
   if (threadIdx.x < 12) fc_table[threadIdx.x] = fc_color_word(op, threadIdx.x);
   load_tile<K1Tile, PACKED, VEC>(frame, H, W, x0, y0, smem);  // ends with a barrier
 
   // overlays: a thread takes runs at column cx of rows ty, ty + 4, ...
   const int cx = (threadIdx.x & 63) * RUN, ty = threadIdx.x >> 6;
-  const size_t plane = (size_t)H * W;
   const bool word = (W & 3) == 0;  // x % 4 == 0, so the run is whole
 #pragma unroll 1
   for (int ry = ty; ry < TH; ry += TILE_THREADS / 64) {
@@ -168,7 +189,8 @@ tile_kernel(const void* __restrict__ frame, const OverlayParams op, const PassPa
       for (int j = 0; j < RUN; ++j)
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch) c[j][ch] >>= 2;
-      store_scaled(p, ds, yuv, ox, oy, c);
+      store_scaled(p, ds + 4 * (size_t)p.h * p.w * fr, yuv + 3 * (size_t)p.h * p.w * fr, ox, oy,
+                   c);
     }
   }
 }
@@ -245,11 +267,15 @@ __device__ __forceinline__ void load_wide(const void* __restrict__ frame, const 
 
 template <bool PACKED, bool VEC>
 __global__ void __launch_bounds__(SC_BX * SC_BY)
-scale_kernel(const void* __restrict__ frame, const PassParams p, uint8_t* __restrict__ ds,
+scale_kernel(const void* __restrict__ frames, const PassParams p, uint8_t* __restrict__ ds,
              uint8_t* __restrict__ yuv) {
   const int ox = (blockIdx.x * SC_BX + threadIdx.x) * RUN;
   const int oy = blockIdx.y * SC_BY + threadIdx.y;
   if (ox >= p.w || oy >= p.h) return;
+  const int fr = blockIdx.z;  // frame fr of the batch
+  const void* frame = frame_at<PACKED>(frames, (size_t)p.h4 * p.w4, fr);
+  ds += 4 * (size_t)p.h * p.w * fr;
+  yuv += 3 * (size_t)p.h * p.w * fr;
   int c[RUN][4];
   // wide loads at scales 1 and 2 for a whole run: its texels lie in the
   // frame (2 * ox + 7 <= 2 * w - 1) and are 16-byte (packed) or 4/8-byte
@@ -296,26 +322,30 @@ scale_kernel(const void* __restrict__ frame, const PassParams p, uint8_t* __rest
 }
 
 template <bool PACKED, bool VEC, bool FUSED>
-cudaError_t launch_tiles(const PassParams& p, const OverlayParams& op, const void* frame, float tm,
-                         void* zb, void* fc, void* fp, void* ds, void* yuv, cudaStream_t st) {
+cudaError_t launch_tiles(const PassParams& p, const OverlayParams& op, const void* frame,
+                         const float* tm, int batch, void* zb, void* fc, void* fp, void* ds,
+                         void* yuv, cudaStream_t st) {
   const size_t smem = PACKED ? K1Tile::PK_SMEM : K1Tile::PL_SMEM;
-  tile_kernel<PACKED, VEC, FUSED><<<dim3(p.tiles_x, p.tiles_y), TILE_THREADS, smem, st>>>(
+  tile_kernel<PACKED, VEC, FUSED><<<dim3(p.tiles_x, p.tiles_y, batch), TILE_THREADS, smem, st>>>(
       frame, op, p, tm, (uint8_t*)zb, (uint8_t*)fc, (uint8_t*)fp, (uint8_t*)ds, (uint8_t*)yuv);
   return cudaGetLastError();
 }
 
 template <bool PACKED, bool VEC>
-cudaError_t launch_pass(const PassParams& p, const OverlayParams& op, const void* frame, float tm,
-                        void* zb, void* fc, void* fp, void* ds, void* yuv, cudaStream_t st) {
+cudaError_t launch_pass(const PassParams& p, const OverlayParams& op, const void* frame,
+                        const float* tm, int batch, void* zb, void* fc, void* fp, void* ds,
+                        void* yuv, cudaStream_t st) {
   if (p.tiles_x > 0) {
     const cudaError_t err =
-        p.fused ? launch_tiles<PACKED, VEC, true>(p, op, frame, tm, zb, fc, fp, ds, yuv, st)
-                : launch_tiles<PACKED, VEC, false>(p, op, frame, tm, zb, fc, fp, ds, yuv, st);
+        p.fused
+            ? launch_tiles<PACKED, VEC, true>(p, op, frame, tm, batch, zb, fc, fp, ds, yuv, st)
+            : launch_tiles<PACKED, VEC, false>(p, op, frame, tm, batch, zb, fc, fp, ds, yuv, st);
     if (err != cudaSuccess) return err;
   }
   if (p.scale_grid_x > 0) {
-    scale_kernel<PACKED, VEC><<<dim3(p.scale_grid_x, p.scale_grid_y), dim3(SC_BX, SC_BY), 0, st>>>(
-        frame, p, (uint8_t*)ds, (uint8_t*)yuv);
+    scale_kernel<PACKED, VEC>
+        <<<dim3(p.scale_grid_x, p.scale_grid_y, batch), dim3(SC_BX, SC_BY), 0, st>>>(
+            frame, p, (uint8_t*)ds, (uint8_t*)yuv);
   }
   return cudaGetLastError();
 }
@@ -326,21 +356,24 @@ extern "C" const char* ocm_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// frames: `batch` contiguous frames; tm: `batch` float32 zebra clocks in
+// device memory; the outputs: `batch` contiguous frames' worth each.
 // zb/fc/fp may all be null (no overlays: tiles_x == 0).  The grids and
 // forms come from PassParams (ops/pipeline.py::frame_plan).  Launches on
 // `stream`, allocates nothing, returns cudaGetLastError() after its
 // launches.
 extern "C" int ocm_frame_pass(const PassParams* pp, const OverlayParams* op,
-                              const void* frame, float tm, void* zb, void* fc, void* fp,
-                              void* ds, void* yuv, void* stream) {
+                              const void* frames, const void* tm, int batch, void* zb, void* fc,
+                              void* fp, void* ds, void* yuv, void* stream) {
   const PassParams p = *pp;
   const cudaStream_t st = (cudaStream_t)stream;
+  const float* t = (const float*)tm;
   cudaError_t err;
   if (p.packed)
-    err = p.vec ? launch_pass<true, true>(p, *op, frame, tm, zb, fc, fp, ds, yuv, st)
-                : launch_pass<true, false>(p, *op, frame, tm, zb, fc, fp, ds, yuv, st);
+    err = p.vec ? launch_pass<true, true>(p, *op, frames, t, batch, zb, fc, fp, ds, yuv, st)
+                : launch_pass<true, false>(p, *op, frames, t, batch, zb, fc, fp, ds, yuv, st);
   else
-    err = p.vec ? launch_pass<false, true>(p, *op, frame, tm, zb, fc, fp, ds, yuv, st)
-                : launch_pass<false, false>(p, *op, frame, tm, zb, fc, fp, ds, yuv, st);
+    err = p.vec ? launch_pass<false, true>(p, *op, frames, t, batch, zb, fc, fp, ds, yuv, st)
+                : launch_pass<false, false>(p, *op, frames, t, batch, zb, fc, fp, ds, yuv, st);
   return (int)err;
 }

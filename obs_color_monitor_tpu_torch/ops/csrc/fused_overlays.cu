@@ -10,8 +10,11 @@
 // anchors the zebra phase at its origin, tm - (float)(x0 + y0), one
 // float32 subtraction as in pallas_overlays.py:81.  The rect is a (4,)
 // int32 in device memory that one thread of each block reads and clamps
-// (dyn_rect.cuh) and computes the anchor from, so a new rect changes no
-// launch and the host never reads it; a null rect is the whole frame.
+// (dyn_rect.cuh), so a new rect changes no launch and the host never reads
+// it; a null rect is the whole frame.  The clock tm is a float32 in device
+// memory too, which every thread loads before the tile copy and uses after
+// it (the copy hides the load), so a CUDA graph of a step replays any
+// clock.
 //
 // What bounds it: bytes.  At the dock's 1920x1080 capture with packed_out
 // it reads 8.3 MB and writes 24.9 MB (0.0099 ms at 3.35 TB/s); at 4K full
@@ -117,7 +120,8 @@ __device__ __forceinline__ int luma_of(uint32_t px, uint32_t hi, uint32_t lo) {
 // 4 blocks per SM: at most 64 registers a thread
 template <bool VEC, bool PACKED_OUT>
 __global__ void __launch_bounds__(K3Tile::THREADS, 4)
-overlay_tile_kernel(const uint8_t* __restrict__ planes, const OverlayParams op, const float tm,
+overlay_tile_kernel(const uint8_t* __restrict__ planes, const OverlayParams op,
+                    const float* __restrict__ tm,
                     const int* __restrict__ rect, const uint32_t* __restrict__ fc_buckets,
                     const bool word, uint8_t* __restrict__ zb, uint8_t* __restrict__ fc,
                     uint8_t* __restrict__ fp) {
@@ -127,20 +131,20 @@ overlay_tile_kernel(const uint8_t* __restrict__ planes, const OverlayParams op, 
   // one band bound inside it (0xFFFFF: none); ops/fused_overlays.py builds it
   __shared__ uint32_t fc_bucket[FC_BUCKETS];
   __shared__ DynRect s_rect;
-  __shared__ float s_tm;
   const int H = op.h, W = op.w;
+  // the clock, issued now and first used after the tile copy, which hides
+  // the load
+  const float tm_raw = __ldg(tm);
   const int x0 = blockIdx.x * K3Tile::TW, y0 = blockIdx.y * K3Tile::TH;
   if (threadIdx.x < 12) fc_table[threadIdx.x] = fc_color_word(op, threadIdx.x);
   fc_bucket[threadIdx.x] = __ldg(fc_buckets + threadIdx.x);
-  if (threadIdx.x == 0) {
-    const DynRect r = rect != nullptr ? load_dyn_rect(rect, W, H) : DynRect{0, 0, W, H};
-    s_rect = r;
-    // the zebra phase anchored at the rect origin: one float32 subtraction
-    s_tm = __fsub_rn(tm, (float)(r.x0 + r.y0));
-  }
+  if (threadIdx.x == 0)
+    s_rect = rect != nullptr ? load_dyn_rect(rect, W, H) : DynRect{0, 0, W, H};
   load_tile<K3Tile, false, VEC>(planes, H, W, x0, y0, smem);  // ends with a barrier
   const DynRect r = s_rect;
-  const float tm_r = s_tm;
+  // the zebra phase anchored at the rect origin: one float32 subtraction
+  // from the clock in device memory (a graph replays any clock)
+  const float tm_r = __fsub_rn(tm_raw, (float)(r.x0 + r.y0));
   uint32_t kzh, kzl, kfh, kfl;
   split_coef(op.kl_zb, kzh, kzl);
   split_coef(op.kl_fc, kfh, kfl);
@@ -219,7 +223,7 @@ overlay_tile_kernel(const uint8_t* __restrict__ planes, const OverlayParams op, 
 
 template <bool VEC, bool PACKED_OUT>
 cudaError_t launch(const OverlayParams& op, const OverlayLaunch& lp, const void* planes,
-                   float tm, const int* rect, const uint32_t* fc_buckets, void* zb, void* fc,
+                   const float* tm, const int* rect, const uint32_t* fc_buckets, void* zb, void* fc,
                    void* fp, cudaStream_t st) {
   overlay_tile_kernel<VEC, PACKED_OUT><<<dim3(lp.tiles_x, lp.tiles_y), K3Tile::THREADS, 0, st>>>(
       (const uint8_t*)planes, op, tm, rect, fc_buckets, lp.word != 0, (uint8_t*)zb, (uint8_t*)fc,
@@ -230,26 +234,27 @@ cudaError_t launch(const OverlayParams& op, const OverlayLaunch& lp, const void*
 }  // namespace
 
 // planes: (4, op->h, op->w) u8.  rect: a (4,) int32 (x0, y0, x1, y1) in
-// device memory, clamped by the kernel, or null for the whole frame.  tm
-// is the zebra clock before the rect's anchor.  fc_buckets: the 256-word
-// false-colour band table in device memory (ops/fused_overlays.py::
-// fc_bucket_table).  zb/fc/fp may each be null.  The grid and forms come
+// device memory, clamped by the kernel, or null for the whole frame.  tm:
+// the zebra clock before the rect's anchor, one float32 in device memory.
+// fc_buckets: the 256-word false-colour band table in device memory
+// (ops/fused_overlays.py::fc_bucket_table).  zb/fc/fp may each be null.  The grid and forms come
 // from OverlayLaunch (ops/fused_overlays.py::overlay_plan).  Launches on
 // `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int ocm_fused_overlays(const OverlayParams* op, const OverlayLaunch* lp,
-                                  const void* planes, float tm, const void* rect,
+                                  const void* planes, const void* tm, const void* rect,
                                   const void* fc_buckets, void* zb, void* fc, void* fp,
                                   void* stream) {
   if (lp->tiles_x == 0 || lp->tiles_y == 0) return 0;  // an empty grid is not a valid launch
   const cudaStream_t st = (cudaStream_t)stream;
   const int* rc = (const int*)rect;
   const uint32_t* fb = (const uint32_t*)fc_buckets;
+  const float* t = (const float*)tm;
   cudaError_t err;
   if (lp->packed_out)
-    err = lp->vec ? launch<true, true>(*op, *lp, planes, tm, rc, fb, zb, fc, fp, st)
-                  : launch<false, true>(*op, *lp, planes, tm, rc, fb, zb, fc, fp, st);
+    err = lp->vec ? launch<true, true>(*op, *lp, planes, t, rc, fb, zb, fc, fp, st)
+                  : launch<false, true>(*op, *lp, planes, t, rc, fb, zb, fc, fp, st);
   else
-    err = lp->vec ? launch<true, false>(*op, *lp, planes, tm, rc, fb, zb, fc, fp, st)
-                  : launch<false, false>(*op, *lp, planes, tm, rc, fb, zb, fc, fp, st);
+    err = lp->vec ? launch<true, false>(*op, *lp, planes, t, rc, fb, zb, fc, fp, st)
+                  : launch<false, false>(*op, *lp, planes, t, rc, fb, zb, fc, fp, st);
   return (int)err;
 }

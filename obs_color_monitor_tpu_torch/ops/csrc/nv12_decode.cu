@@ -51,12 +51,17 @@ __device__ __forceinline__ int decode_px(int y, int cb, int cr, const Nv12Coef k
 
 // T = uint8_t (K4, shift 0) or uint16_t (K5, shift 1..8).  Thread (i, row)
 // decodes pixels 2i and 2i+1 of `row`; uv row row/2 holds Cb, Cr at 2i, 2i+1.
+// blockIdx.z is the frame of a batch of contiguous frames (vmap's grid axis).
 template <typename T>
 __global__ void nv12_kernel(const T* __restrict__ y, const T* __restrict__ uv, int h, int w,
                             int shift, const Nv12Coef k, int2* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y;
   if (i >= w / 2 || row >= h) return;
+  const size_t frame = (size_t)h * w * blockIdx.z;
+  y += frame;
+  uv += frame / 2;
+  out += frame / 2;
   const size_t py = (size_t)row * w + 2 * i;
   const size_t pc = (size_t)(row >> 1) * w + 2 * i;
   const int cb = to8(__ldg(uv + pc), shift) - 128;
@@ -68,11 +73,11 @@ __global__ void nv12_kernel(const T* __restrict__ y, const T* __restrict__ uv, i
 }
 
 template <typename T>
-int launch(const void* y, const void* uv, int h, int w, int shift, Nv12Coef k, void* out,
-           void* stream) {
-  if (h == 0 || w == 0) return 0;  // an empty grid is not a valid launch
+int launch(const void* y, const void* uv, int batch, int h, int w, int shift, Nv12Coef k,
+           void* out, void* stream) {
+  if (batch == 0 || h == 0 || w == 0) return 0;  // an empty grid is not a valid launch
   const dim3 block(128);
-  const dim3 grid((w / 2 + 127) / 128, h);
+  const dim3 grid((w / 2 + 127) / 128, h, batch);
   nv12_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
       (const T*)y, (const T*)uv, h, w, shift, k, (int2*)out);
   return (int)cudaGetLastError();
@@ -80,18 +85,20 @@ int launch(const void* y, const void* uv, int h, int w, int shift, Nv12Coef k, v
 
 }  // namespace
 
-// K4: y (h, w) u8, uv (h/2, w) u8; h, w even.  out (h, w) int32, 8-byte
-// aligned.  Launches on `stream`, allocates nothing, returns
-// cudaGetLastError().
-extern "C" int ocm_nv12_decode(const void* y, const void* uv, int h, int w, int kr_cr,
-                               int kg_cb, int kg_cr, int kb_cb, void* out, void* stream) {
-  return launch<uint8_t>(y, uv, h, w, 0, Nv12Coef{kr_cr, kg_cb, kg_cr, kb_cb}, out, stream);
+// K4: y (batch, h, w) u8, uv (batch, h/2, w) u8, each contiguous; h, w
+// even.  out (batch, h, w) int32, 8-byte aligned.  Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
+extern "C" int ocm_nv12_decode(const void* y, const void* uv, int batch, int h, int w,
+                               int kr_cr, int kg_cb, int kg_cr, int kb_cb, void* out,
+                               void* stream) {
+  return launch<uint8_t>(y, uv, batch, h, w, 0, Nv12Coef{kr_cr, kg_cb, kg_cr, kb_cb}, out,
+                         stream);
 }
 
 // K5: the same with u16 planes and shift in 1..8.
-extern "C" int ocm_nv12_16_decode(const void* y, const void* uv, int h, int w, int shift,
-                                  int kr_cr, int kg_cb, int kg_cr, int kb_cb, void* out,
-                                  void* stream) {
-  return launch<uint16_t>(y, uv, h, w, shift, Nv12Coef{kr_cr, kg_cb, kg_cr, kb_cb}, out,
+extern "C" int ocm_nv12_16_decode(const void* y, const void* uv, int batch, int h, int w,
+                                  int shift, int kr_cr, int kg_cb, int kg_cr, int kb_cb,
+                                  void* out, void* stream) {
+  return launch<uint16_t>(y, uv, batch, h, w, shift, Nv12Coef{kr_cr, kg_cb, kg_cr, kb_cb}, out,
                           stream);
 }

@@ -53,6 +53,13 @@
 // column, the waveform counts only the rect's rows and leaves the columns
 // outside it zero.  The grids depend on (h, w) alone, so a new rect
 // changes no launch.
+//
+// A batch of B frames counts in one launch of each grid, as vmap adds a grid
+// axis to the pallas_call: blockIdx.y is the frame, each input plane of
+// frame b lies b frame strides after frame 0's (its own stride: u and v are
+// planes of one YUV tensor), and each frame has its own partials and
+// outputs, summed and stored per frame.  The rect, when given, is the same
+// for every frame.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -146,12 +153,18 @@ __device__ __forceinline__ void vs_fill(uint8_t* slot, const uint8_t* __restrict
 
 template <bool RECT, bool VEC>
 __global__ void __launch_bounds__(VS_THREADS, 1)
-vs_count_kernel(const uint8_t* __restrict__ u, const uint8_t* __restrict__ v, long long n, int w,
-                int h, const int* __restrict__ rect, int per_block, int* __restrict__ partial) {
+vs_count_kernel(const uint8_t* __restrict__ u, const uint8_t* __restrict__ v, long long u_stride,
+                long long v_stride, long long n, int w, int h, const int* __restrict__ rect,
+                int per_block, int* __restrict__ partial) {
   extern __shared__ __align__(16) uint32_t hist[];  // word k: bin 2k in bits 0-15, 2k+1 in 16-31
   uint32_t* mark = hist + VS_WORDS;                  // touched chunks, VS_MARK_WORDS
   uint8_t* stages = reinterpret_cast<uint8_t*>(mark + VS_MARK_WORDS);  // [stage][u, v][VS_TILE]
   cg::cluster_group cluster = cg::this_cluster();
+  // frame fr of the batch: its planes and its clusters' partials
+  const int fr = blockIdx.y;
+  u += u_stride * fr;
+  v += v_stride * fr;
+  partial += (size_t)fr * (gridDim.x / VS_CLUSTER) * VS_BINS;
   // the waveform kernel, launched after this one as its programmatic
   // dependent, may start now and share the SMs (it reads none of our output
   // until its griddepcontrol.wait)
@@ -302,10 +315,13 @@ __device__ __forceinline__ void vs_reduce4(const int* partial, int clusters, int
   *reinterpret_cast<int4*>(vs + i) = s;
 }
 
-// The partials' sum when the vectorscope runs alone (K7).
+// The partials' sum when the vectorscope runs alone (K7); blockIdx.y is the
+// frame.
 __global__ void __launch_bounds__(RED_THREADS)
 vs_reduce_kernel(const int* __restrict__ partial, int clusters, int* __restrict__ vs) {
-  vs_reduce4(partial, clusters, vs, (blockIdx.x * RED_THREADS + threadIdx.x) * 4);
+  const size_t fr = blockIdx.y;
+  vs_reduce4(partial + fr * clusters * VS_BINS, clusters, vs + fr * VS_BINS,
+             (blockIdx.x * RED_THREADS + threadIdx.x) * 4);
 }
 
 // ---- waveform ----
@@ -339,13 +355,22 @@ __device__ __forceinline__ void wv_fill(uint8_t* slot, const uint8_t* __restrict
 
 template <int CL, bool VEC, bool MASK>
 __global__ void __launch_bounds__(WV_THREADS)
-wv_count_kernel(const uint8_t* __restrict__ data, long long plane_stride,
-                const uint8_t* __restrict__ mask, const int* __restrict__ rect, int h, int w,
-                int rows_per_block, int* __restrict__ wv, const int* vs_partial,
-                int vs_clusters, int* vs) {
+wv_count_kernel(const uint8_t* __restrict__ data, long long plane_stride, long long data_stride,
+                const uint8_t* __restrict__ mask, long long mask_stride,
+                const int* __restrict__ rect, int h, int w, int rows_per_block,
+                int* __restrict__ wv, const int* vs_partial, int vs_clusters, int* vs) {
   extern __shared__ __align__(16) uint32_t cnt[];  // [channel][bin pair][column]
   uint8_t* stages = reinterpret_cast<uint8_t*>(cnt + WV_WORDS);
   cg::cluster_group cluster = cg::this_cluster();
+  // frame fr of the batch: its planes, its waveform, its vectorscope
+  const int fr = blockIdx.y;
+  data += data_stride * fr;
+  if (MASK) mask += mask_stride * fr;
+  wv += (size_t)fr * 3 * WV_BINS * w;
+  if (vs != nullptr) {
+    vs += (size_t)fr * VS_BINS;
+    vs_partial += (size_t)fr * vs_clusters * VS_BINS;
+  }
   const int rank = (int)cluster.block_rank();
   for (int k = threadIdx.x; k < WV_WORDS / 4; k += WV_THREADS)
     reinterpret_cast<uint4*>(cnt)[k] = make_uint4(0, 0, 0, 0);
@@ -444,14 +469,15 @@ wv_count_kernel(const uint8_t* __restrict__ data, long long plane_stride,
   }
 }
 
-// A cluster launch; `overlap`: as the programmatic dependent of the launch
+// A cluster launch of `blocks` x `batch` blocks (clusters along x);
+// `overlap`: as the programmatic dependent of the launch
 // before it on the stream, free to start once that grid's blocks have all
 // run griddepcontrol.launch_dependents.
 template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(Kernel kernel, int blocks, int threads, size_t smem, int cluster,
-                           bool overlap, cudaStream_t st, Args... args) {
+cudaError_t launch_cluster(Kernel kernel, int blocks, int batch, int threads, size_t smem,
+                           int cluster, bool overlap, cudaStream_t st, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
+  cfg.gridDim = dim3(blocks, batch);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -481,29 +507,36 @@ cudaError_t opt_in(Kernel kernel, size_t smem, unsigned long long& done) {
   return err;
 }
 
+// Strides between the frames of a batch, in bytes, of each input.
+struct FrameStrides {
+  long long u, v, data, mask;
+};
+
 template <bool RECT, bool VEC>
-cudaError_t launch_vs(const StatsPlan& p, const uint8_t* u, const uint8_t* v, int h, int w,
-                      const int* rect, int* partial, cudaStream_t st) {
+cudaError_t launch_vs(const StatsPlan& p, const uint8_t* u, const uint8_t* v, int batch,
+                      const FrameStrides& fs, int h, int w, const int* rect, int* partial,
+                      cudaStream_t st) {
   static unsigned long long done = 0;
   const auto kernel = vs_count_kernel<RECT, VEC>;
   cudaError_t err = opt_in(kernel, VS_SMEM, done);
   if (err != cudaSuccess) return err;
-  return launch_cluster(kernel, p.vs_clusters * VS_CLUSTER, VS_THREADS, VS_SMEM, VS_CLUSTER,
-                        false, st, u, v, (long long)h * w, w, h, rect, p.vs_per_block, partial);
+  return launch_cluster(kernel, p.vs_clusters * VS_CLUSTER, batch, VS_THREADS, VS_SMEM,
+                        VS_CLUSTER, false, st, u, v, fs.u, fs.v, (long long)h * w, w, h, rect,
+                        p.vs_per_block, partial);
 }
 
 template <int CL, bool VEC, bool MASK>
 cudaError_t launch_wv(const StatsPlan& p, const uint8_t* data, long long plane_stride,
-                      const uint8_t* mask, const int* rect, int h, int w, int* wv,
-                      const int* vs_partial, int* vs, cudaStream_t st) {
+                      const uint8_t* mask, int batch, const FrameStrides& fs, const int* rect,
+                      int h, int w, int* wv, const int* vs_partial, int* vs, cudaStream_t st) {
   static unsigned long long done = 0;
   const auto kernel = wv_count_kernel<CL, VEC, MASK>;
   cudaError_t err = opt_in(kernel, WV_SMEM, done);
   if (err != cudaSuccess) return err;
-  return launch_cluster(kernel, p.wv_strips * CL, WV_THREADS, WV_SMEM, CL,
+  return launch_cluster(kernel, p.wv_strips * CL, batch, WV_THREADS, WV_SMEM, CL,
                         vs != nullptr, st,
-                        data, plane_stride, mask, rect, h, w, p.wv_rows, wv, vs_partial,
-                        p.vs_clusters, vs);
+                        data, plane_stride, fs.data, mask, fs.mask, rect, h, w, p.wv_rows, wv,
+                        vs_partial, p.vs_clusters, vs);
 }
 
 }  // namespace
@@ -512,33 +545,39 @@ cudaError_t launch_wv(const StatsPlan& p, const uint8_t* data, long long plane_s
 // pallas_stats.py::_fused_kernel, K6), the vectorscope alone (::_vs_kernel,
 // K7) or the waveform alone (::_wv_kernel, K8); a skipped count's pointers
 // may be null.  rect: a (4,) int32 dynamic ROI in device memory, or null
-// for the whole plane.  vs_partial: (vs_clusters, 65536) int32 scratch, or
-// vs itself when vs_clusters == 1.  vs and wv are written in full (an empty
-// frame launches nothing).  The grids and forms come from the plan
+// for the whole plane.  vs_partial: (batch, vs_clusters, 65536) int32
+// scratch, or vs itself when vs_clusters == 1.  A batch of `batch` frames:
+// frame b's planes lie b strides (u_stride, v_stride, data_stride,
+// mask_stride bytes) after frame 0's, and its outputs at vs + b * 65536 and
+// wv + b * 3 * 256 * w.  vs and wv are written in full (an empty frame
+// launches nothing).  The grids and forms come from the plan
 // (ops/scope_stats.py::stats_plan).  Launches on `stream`, allocates
 // nothing, returns cudaGetLastError() after its launches.
 extern "C" int ocm_scope_stats(const StatsPlan* plan, const void* u, const void* v,
                                const void* data, long long plane_stride, const void* mask,
                                const void* rect, int h, int w, void* vs, void* vs_partial,
-                               void* wv, int need_vs, int need_wv, void* stream) {
+                               void* wv, int need_vs, int need_wv, int batch,
+                               long long u_stride, long long v_stride, long long data_stride,
+                               long long mask_stride, void* stream) {
   const StatsPlan p = *plan;
+  const FrameStrides fs{u_stride, v_stride, data_stride, mask_stride};
   const cudaStream_t st = (cudaStream_t)stream;
   const auto *pu = (const uint8_t*)u, *pv = (const uint8_t*)v;
   const auto* pr = (const int*)rect;
   cudaError_t err = cudaSuccess;
-  if ((long long)h * w == 0) return (int)cudaGetLastError();
+  if ((long long)h * w == 0 || batch == 0) return (int)cudaGetLastError();
   int* partial = (int*)vs_partial;
   if (need_vs) {
     if (rect != nullptr)
-      err = p.vs_vec ? launch_vs<true, true>(p, pu, pv, h, w, pr, partial, st)
-                     : launch_vs<true, false>(p, pu, pv, h, w, pr, partial, st);
+      err = p.vs_vec ? launch_vs<true, true>(p, pu, pv, batch, fs, h, w, pr, partial, st)
+                     : launch_vs<true, false>(p, pu, pv, batch, fs, h, w, pr, partial, st);
     else
-      err = p.vs_vec ? launch_vs<false, true>(p, pu, pv, h, w, pr, partial, st)
-                     : launch_vs<false, false>(p, pu, pv, h, w, pr, partial, st);
+      err = p.vs_vec ? launch_vs<false, true>(p, pu, pv, batch, fs, h, w, pr, partial, st)
+                     : launch_vs<false, false>(p, pu, pv, batch, fs, h, w, pr, partial, st);
     if (err != cudaSuccess) return (int)err;
     if (!need_wv && p.vs_clusters > 1) {
-      vs_reduce_kernel<<<VS_BINS / (4 * RED_THREADS), RED_THREADS, 0, st>>>(partial, p.vs_clusters,
-                                                                            (int*)vs);
+      vs_reduce_kernel<<<dim3(VS_BINS / (4 * RED_THREADS), batch), RED_THREADS, 0, st>>>(
+          partial, p.vs_clusters, (int*)vs);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -554,7 +593,7 @@ extern "C" int ocm_scope_stats(const StatsPlan* plan, const void* u, const void*
       constexpr int CL = decltype(cl)::value;
       auto launch = [&](auto vec, auto has_mask) {
         return launch_wv<CL, decltype(vec)::value, decltype(has_mask)::value>(
-            p, pd, plane_stride, pm, pr, h, w, (int*)wv, partial, vs_out, st);
+            p, pd, plane_stride, pm, batch, fs, pr, h, w, (int*)wv, partial, vs_out, st);
       };
       using T = std::true_type;
       using F = std::false_type;

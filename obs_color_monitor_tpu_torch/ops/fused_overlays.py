@@ -23,6 +23,7 @@ import torch
 from .. import _kernels
 from . import overlays as ov
 from .convert import clamp_rect, interleave, luma_coef_fixed, rgba_to_packed
+from .overlays import clock_tensor
 from .pipeline import _overlay_params
 
 ALL = (True, True, True)
@@ -135,17 +136,18 @@ def packed_from_planes(planes: torch.Tensor) -> torch.Tensor:
     return rgba_to_packed(interleave(planes))
 
 
-def _tm_rect(tm: float, rect_c: torch.Tensor | None, device) -> torch.Tensor:
-    """The zebra clock with its phase anchored at the clamped rect's origin:
-    ``tm - (x0 + y0)``, one float32 subtraction, as the JAX kernel and
-    dynamic dock compute it (``pallas_overlays.py:81``)."""
-    tm32 = torch.tensor(np.float32(tm), device=device)
+def _tm_rect(tm, rect_c: torch.Tensor | None, device) -> torch.Tensor:
+    """The zebra clock (a float, or a 0-d float32 tensor taken as it is)
+    with its phase anchored at the clamped rect's origin: ``tm - (x0 +
+    y0)``, one float32 subtraction, as the JAX kernel and dynamic dock
+    compute it (``pallas_overlays.py:81``)."""
+    tm32 = clock_tensor(tm, device)
     return tm32 if rect_c is None else tm32 - (rect_c[0] + rect_c[1]).to(torch.float32)
 
 
 def fused_overlays_reference(
     planes: torch.Tensor,
-    tm: float,
+    tm: float | torch.Tensor,
     *,
     th_low: float,
     th_high: float,
@@ -174,9 +176,11 @@ def fused_overlays_reference(
     return zb, fc, fp
 
 
-def check_overlay_inputs(planes: torch.Tensor, rect, outputs) -> tuple[int, int]:
+def check_overlay_inputs(planes: torch.Tensor, rect, outputs, tm=None) -> tuple[int, int]:
     """K3's argument checks (what the kernel takes): raise ValueError on
-    anything else; return (H, W)."""
+    anything else; return (H, W).  ``tm``: the 0-d clock tensor."""
+    if tm is not None and tm.shape != ():
+        raise ValueError(f"tm must be a 0-d float32 tensor, got {tuple(tm.shape)}")
     if planes.ndim != 3 or planes.shape[0] != 4 or planes.dtype != torch.uint8:
         raise ValueError(f"planes must be (4, H, W) u8, got {tuple(planes.shape)} {planes.dtype}")
     if not planes.is_contiguous():
@@ -194,7 +198,7 @@ def check_overlay_inputs(planes: torch.Tensor, rect, outputs) -> tuple[int, int]
 
 def fused_overlays_planes(
     planes: torch.Tensor,
-    tm: float,
+    tm: float | torch.Tensor,
     *,
     th_low: float,
     th_high: float,
@@ -218,8 +222,11 @@ def fused_overlays_planes(
     device, a dynamic ROI, changes no launch; host integers are copied
     there first.
     ``packed_out`` returns (H, W) int32 packed RGBA instead of planes;
-    ``outputs`` switches each overlay on or off (None in its place).  A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel.
+    ``outputs`` switches each overlay on or off (None in its place).  ``tm``
+    is the zebra clock, a Python float or a 0-d float32 tensor on the
+    planes' device, which the kernel reads from device memory (so a CUDA
+    graph replays any clock).  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel.
     """
     dev = planes.device
     if dev.type == "cpu":
@@ -229,7 +236,8 @@ def fused_overlays_planes(
             packed_out=packed_out, outputs=outputs)
     if dev.type != "cuda":
         raise ValueError(f"fused_overlays_planes: unsupported device {dev}")
-    h, w = check_overlay_inputs(planes, rect, outputs)
+    tm = clock_tensor(tm, dev)
+    h, w = check_overlay_inputs(planes, rect, outputs, tm)
     if rect is not None and not isinstance(rect, torch.Tensor):
         rect = clamp_rect(rect, w, h, dev)
     _, _, op, lp, plan = _launch_args(h, w, th_low, th_high, zb_cs, fc_cs, peak_th,
@@ -240,7 +248,7 @@ def fused_overlays_planes(
     lib = _kernels.library()
     with torch.cuda.device(dev):
         rc = lib.ocm_fused_overlays(
-            op, lp, planes.data_ptr(), float(tm),
+            op, lp, planes.data_ptr(), tm.data_ptr(),
             None if rect is None else rect.data_ptr(), _fc_buckets(dev).data_ptr(),
             *(None if t is None else t.data_ptr() for t in outs),
             _kernels.stream_handle(dev),

@@ -11,6 +11,8 @@ is ``ops/csrc/overlay_math.cuh``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -25,6 +27,28 @@ BAND_COLORS = falsecolor_band_colors_u8()  # (12, 4) u8
 BAND_THRESH = tuple(luma_threshold_fixed(t) for t, _ in FALSECOLOR_BANDS[:-1])  # (11,)
 
 
+def clock_tensor(tm, device) -> torch.Tensor:
+    """The zebra clock as the kernels read it: a float32 tensor on
+    ``device``.  A tensor is taken as it is (0-d for one frame, (B,) for a
+    batch); a Python number is filled into a new 0-d tensor (``fill_`` passes
+    the value as a kernel argument: no copy from host memory)."""
+    device = torch.device(device)
+    if isinstance(tm, torch.Tensor):
+        if tm.dtype != torch.float32 or tm.device.type != device.type or (
+                device.index is not None and tm.device.index != device.index):
+            raise ValueError(f"tm must be a float32 tensor on {device}, got {tm.dtype} on "
+                             f"{tm.device}")
+        return tm
+    return torch.full((), float(tm), dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _band_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """False colour's band bounds and colours on ``device``, made once."""
+    return (torch.tensor(BAND_THRESH, dtype=torch.int32, device=device),
+            torch.as_tensor(BAND_COLORS, device=device))
+
+
 def zebra_planes(
     planes: torch.Tensor, th_low: float, th_high: float, tm: float, cs: int
 ) -> torch.Tensor:
@@ -32,15 +56,13 @@ def zebra_planes(
     ``floor(x + y + 1 + tm) mod 6 < 3``; striped pixels become opaque black
     (``overlays.zebra_planes``).  The phase is float32 (``x + y + 1`` is
     exact there) with the floored modulo of JAX's ``%``.  ``tm`` is a
-    Python float or a 0-d float32 tensor on the planes' device."""
+    Python float or a 0-d float32 tensor on the planes' device, taken as it
+    is (:func:`clock_tensor`)."""
     luma = luma_planes(planes, cs)
     h, w = planes.shape[-2], planes.shape[-1]
     yy = torch.arange(h, dtype=torch.float32, device=planes.device)[:, None]
     xx = torch.arange(w, dtype=torch.float32, device=planes.device)[None, :]
-    if isinstance(tm, torch.Tensor):
-        tm32 = tm.to(torch.float32)
-    else:
-        tm32 = torch.tensor(np.float32(tm), device=planes.device)
+    tm32 = clock_tensor(tm, planes.device)
     phase = torch.floor(xx + yy + 1.0 + tm32).to(torch.int32).remainder(6)
     stripe = (
         (luma >= luma_threshold_fixed(th_low))
@@ -55,9 +77,8 @@ def falsecolor_planes(planes: torch.Tensor, cs: int) -> torch.Tensor:
     """12-band false colour: the band is the first whose upper bound the
     luma is below (``overlays.falsecolor_planes``)."""
     luma = luma_planes(planes, cs)
-    thresh = torch.tensor(BAND_THRESH, dtype=torch.int32, device=planes.device)
+    thresh, colors = _band_tables(planes.device)
     band = torch.bucketize(luma, thresh, right=True)  # count of bounds <= luma
-    colors = torch.as_tensor(BAND_COLORS, device=planes.device)
     return colors[band].movedim(-1, -3).contiguous()
 
 

@@ -16,7 +16,9 @@ here, not its layout:
   (``pallas_stats.py:419``), are K1's scale launch and K2 on a planar frame.
 
 The input is the packed (H, W) int32 view of an RGBA frame or a planar
-(4, H, W) u8 frame.
+(4, H, W) u8 frame, or a batch of them, (B, H, W) or (B, 4, H, W): K1 takes
+the batch in one launch (its grid's z axis, as ``vmap`` adds a grid axis to
+the ``pallas_call``), each frame with its own zebra clock ``tm[b]``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..golden.reference import luma_threshold_fixed
 from . import overlays as ov
 from .convert import as_packed, downscale_planes, luma_coef_fixed, planarize_packed
 from .convert import rgb_to_yuv_planes
+from .overlays import clock_tensor
 from .scope_stats import vs_wv_counts, vs_wv_counts_reference
 
 _I = ctypes.c_int
@@ -113,12 +116,20 @@ def _overlay_params(h4, w4, th_low, th_high, zb_cs, fc_cs, peak_th, peak_rgba) -
     )
 
 
+def batch_of(frame: torch.Tensor, packed: bool) -> int | None:
+    """The batch size of a batched frame, (B, H, W) packed or (B, 4, H, W)
+    planar; None for a single frame."""
+    return frame.shape[0] if frame.ndim == (3 if packed else 4) else None
+
+
 def _frame_dims(frame: torch.Tensor, packed: bool) -> tuple[int, int]:
     if packed:
-        if frame.ndim != 2:
-            raise ValueError(f"packed frame must be (H, W), got {tuple(frame.shape)}")
-    elif frame.ndim != 3 or frame.shape[0] != 4 or frame.dtype != torch.uint8:
-        raise ValueError(f"planar frame must be (4, H, W) u8, got {tuple(frame.shape)} {frame.dtype}")
+        if frame.ndim not in (2, 3):
+            raise ValueError(f"packed frame must be (H, W) or (B, H, W), got "
+                             f"{tuple(frame.shape)}")
+    elif frame.ndim not in (3, 4) or frame.shape[-3] != 4 or frame.dtype != torch.uint8:
+        raise ValueError(f"planar frame must be (4, H, W) or (B, 4, H, W) u8, got "
+                         f"{tuple(frame.shape)} {frame.dtype}")
     return frame.shape[-2], frame.shape[-1]
 
 
@@ -131,19 +142,26 @@ def _scaled_dims(h4: int, w4: int, scale: int) -> tuple[int, int]:
     return h, w
 
 
-def check_frame_inputs(frame: torch.Tensor, packed: bool, scale: int) -> tuple[int, int, int, int]:
+def check_frame_inputs(frame: torch.Tensor, packed: bool, scale: int,
+                       tm: torch.Tensor | None = None) -> tuple[int, int, int, int]:
     """K1's argument checks (what the kernel takes): raise ValueError on
-    anything else; return (H, W, h, w)."""
+    anything else; return (H, W, h, w).  ``tm``: the clock tensor, 0-d for
+    a single frame, (B,) for a batch of B, contiguous."""
     h4, w4 = _frame_dims(frame, packed)
     h, w = _scaled_dims(h4, w4, scale)
     if not frame.is_contiguous():
         raise ValueError("frame_pass: the frame must be contiguous")
+    b = batch_of(frame, packed)
+    if tm is not None and (tuple(tm.shape) != (() if b is None else (b,))
+                           or not tm.is_contiguous()):
+        raise ValueError(f"frame_pass: tm must be {'0-d' if b is None else (b,)} float32, got "
+                         f"{tuple(tm.shape)}")
     return h4, w4, h, w
 
 
 def frame_pass_reference(
     frame: torch.Tensor,
-    tm: float = 0.0,
+    tm: float | torch.Tensor = 0.0,
     *,
     packed: bool,
     cs: int,
@@ -158,9 +176,17 @@ def frame_pass_reference(
 ):
     """Plain version of K1, composed from the convert and overlay ops:
     (ds (4, h, w), yuv (3, h, w), zebra, falsecolor, focuspeaking), the
-    overlays (4, H, W) u8 or None without overlays."""
+    overlays (4, H, W) u8 or None without overlays.  A batch runs frame by
+    frame (frame b with ``tm[b]``) and each output gains a leading B."""
     h4, w4 = _frame_dims(frame, packed)
     _scaled_dims(h4, w4, scale)
+    kw = dict(packed=packed, cs=cs, scale=scale, with_overlays=with_overlays, th_low=th_low,
+              th_high=th_high, zb_cs=zb_cs, fc_cs=fc_cs, peak_th=peak_th, peak_rgba=peak_rgba)
+    if batch_of(frame, packed) is not None:
+        tm = clock_tensor(tm, frame.device)
+        outs = [frame_pass_reference(f, tm[b] if tm.ndim else tm, **kw)
+                for b, f in enumerate(frame)]
+        return tuple(None if o[0] is None else torch.stack(o) for o in zip(*outs))
     planes = planarize_packed(frame) if packed else frame
     ds = downscale_planes(planes, scale).contiguous()
     yuv = rgb_to_yuv_planes(ds, cs)
@@ -174,7 +200,7 @@ def frame_pass_reference(
 
 def frame_pass(
     frame: torch.Tensor,
-    tm: float = 0.0,
+    tm: float | torch.Tensor = 0.0,
     *,
     packed: bool,
     cs: int,
@@ -188,8 +214,11 @@ def frame_pass(
     peak_rgba: tuple[int, int, int, int] = (255, 0, 0, 255),
 ):
     """K1: one pass over the full-res frame (see
-    :func:`frame_pass_reference` for the outputs).  A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel."""
+    :func:`frame_pass_reference` for the outputs), or over a batch of frames
+    in one launch.  ``tm`` is the zebra clock: a Python float or a 0-d
+    float32 tensor on the frame's device for one frame, a (B,) float32
+    tensor for a batch; the kernel reads it from device memory.  A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel."""
     kw = dict(
         packed=packed, cs=cs, scale=scale, with_overlays=with_overlays,
         th_low=th_low, th_high=th_high, zb_cs=zb_cs, fc_cs=fc_cs,
@@ -201,13 +230,18 @@ def frame_pass(
         return frame_pass_reference(frame, tm, **kw)
     if frame.device.type != "cuda":
         raise ValueError(f"frame_pass: unsupported device {frame.device}")
-    h4, w4, h, w = check_frame_inputs(frame, packed, scale)
     dev = frame.device
-    ds = torch.empty((4, h, w), dtype=torch.uint8, device=dev)
-    yuv = torch.empty((3, h, w), dtype=torch.uint8, device=dev)
+    # only the tile launch (the overlays) reads the clock
+    tm = clock_tensor(tm, dev) if with_overlays else None
+    h4, w4, h, w = check_frame_inputs(frame, packed, scale, tm)
+    b = batch_of(frame, packed)
+    lead = () if b is None else (b,)
+    ds = torch.empty((*lead, 4, h, w), dtype=torch.uint8, device=dev)
+    yuv = torch.empty((*lead, 3, h, w), dtype=torch.uint8, device=dev)
     zb = fc = fp = None
     if with_overlays:
-        zb, fc, fp = (torch.empty((4, h4, w4), dtype=torch.uint8, device=dev) for _ in range(3))
+        zb, fc, fp = (torch.empty((*lead, 4, h4, w4), dtype=torch.uint8, device=dev)
+                      for _ in range(3))
     plan = frame_plan(h4, w4, int(scale), bool(packed), bool(with_overlays),
                       frame.data_ptr() % 16 == 0)
     pp = _pass_params(h4, w4, int(scale), bool(packed), int(cs), plan)
@@ -217,8 +251,8 @@ def frame_pass(
     lib = _kernels.library()
     with torch.cuda.device(dev):
         rc = lib.ocm_frame_pass(
-            ctypes.addressof(pp), ctypes.addressof(op), frame.data_ptr(), float(tm),
-            ptr(zb), ptr(fc), ptr(fp), ds.data_ptr(), yuv.data_ptr(),
+            ctypes.addressof(pp), ctypes.addressof(op), frame.data_ptr(), ptr(tm),
+            1 if b is None else b, ptr(zb), ptr(fc), ptr(fp), ds.data_ptr(), yuv.data_ptr(),
             _kernels.stream_handle(dev),
         )
     frame_pass.launches += 1
@@ -234,12 +268,14 @@ frame_pass.launches_vec = 0
 
 
 def stats_inputs(ds: torch.Tensor, yuv: torch.Tensor, yuv_data: bool):
-    """K2's inputs for a component family: (u, v, data, mask).  The RGB
-    family counts R, G, B and skips alpha-0 pixels; the YUV family counts
-    Y, U, V and never skips (bit-exactness §4-5)."""
+    """K2's inputs for a component family: (u, v, data, mask), of one frame
+    or of a batch (a leading B on each).  The RGB family counts R, G, B and
+    skips alpha-0 pixels; the YUV family counts Y, U, V and never skips
+    (bit-exactness §4-5)."""
+    u, v = yuv[..., 1, :, :], yuv[..., 2, :, :]
     if yuv_data:
-        return yuv[1], yuv[2], yuv, None
-    return yuv[1], yuv[2], ds[:3], ds[3]
+        return u, v, yuv, None
+    return u, v, ds[..., :3, :, :], ds[..., 3, :, :]
 
 
 def _pipeline(pass_fn, count_fn, frame, tm, yuv_data, kw):

@@ -7,7 +7,9 @@ Counterpart of ``obs_color_monitor_tpu/ops/pallas_stats.py``:
 from the frame pipeline's (S, NB, OH, 128) tiles and leaves padding and
 alpha corrections to its caller; this one reads planar (h, w) planes,
 masks its own ragged edge and skips masked pixels itself, so its outputs
-are final.  The CUDA source is ``ops/csrc/scope_stats.cu``.
+are final.  A batch of frames (a leading B on every input) counts in one
+launch of each grid, with per-frame outputs, as ``vmap`` adds a grid axis
+to the ``pallas_call``.  The CUDA source is ``ops/csrc/scope_stats.cu``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,15 @@ def vs_wv_counts_reference(
     """Plain version of K2: ((256, 256) int32 counts[v, u] over every pixel,
     (3, 256, w) int32 per-column waveform of ``data`` skipping pixels whose
     ``mask`` is 0); an output not needed is None.  With a dynamic ``rect``
-    only the pixels inside it count, masked by the clamped rect."""
+    only the pixels inside it count, masked by the clamped rect.  A batch
+    runs frame by frame, each output gaining a leading B."""
+    if _batched(u, data, need_vs):
+        outs = [vs_wv_counts_reference(
+            None if u is None else u[b], None if v is None else v[b],
+            None if data is None else data[b], None if mask is None else mask[b],
+            need_vs=need_vs, need_wv=need_wv, rect=rect)
+            for b in range((u if need_vs else data).shape[0])]
+        return tuple(None if o[0] is None else torch.stack(o) for o in zip(*outs))
     ref = u if need_vs else data
     inr = None
     if rect is not None:
@@ -113,36 +123,52 @@ def stats_plan(h: int, w: int, *, vs_aligned: bool = True, wv_aligned: bool = Tr
                      int(wv_aligned and w % 16 == 0))
 
 
+def _batched(u, data, need_vs: bool) -> bool:
+    """Whether K2's inputs carry a leading batch axis."""
+    return u.ndim == 3 if need_vs else data.ndim == 4
+
+
 def _aligned(*ts) -> bool:
-    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+    """The tensors' bases, and in a batch each frame's, are 16-byte
+    aligned (a None passes)."""
+    return all(t is None or (t.data_ptr() % 16 == 0 and (t.ndim < 3 or t.stride(0) % 16 == 0))
+               for t in ts)
 
 
-def _check_plane(name: str, t: torch.Tensor, h: int, w: int) -> None:
-    if t.dtype not in (torch.uint8, torch.bool) or t.shape != (h, w) or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous ({h}, {w}) u8 plane, got "
+def _frame_stride(t) -> int:
+    """Bytes from one frame of a batched u8 tensor to the next (0: none)."""
+    return 0 if t is None else t.stride(0)
+
+
+def _check_plane(name: str, t: torch.Tensor, lead: tuple, h: int, w: int) -> None:
+    if (t.dtype not in (torch.uint8, torch.bool) or tuple(t.shape) != (*lead, h, w)
+            or t.stride()[-2:] != (w, 1)):
+        raise ValueError(f"{name} must be {(*lead, h, w)} u8 with contiguous planes, got "
                          f"{tuple(t.shape)} {t.dtype}")
 
 
 def check_stats_inputs(u, v, data, mask, *, need_vs: bool, need_wv: bool, rect) -> tuple[int, int]:
     """K2's argument checks (what the kernels take): raise ValueError on
-    anything else; return the planes' (h, w)."""
+    anything else; return the planes' (h, w).  Each plane (of each frame of
+    a batch) must be contiguous; frames may lie at any stride."""
     ref = u if need_vs else data
     h, w = ref.shape[-2:]
+    lead = tuple(ref.shape[:1]) if _batched(u, data, need_vs) else ()
     tensors = []
     if need_vs:
         for name, t in (("u", u), ("v", v)):
-            _check_plane(name, t, h, w)
+            _check_plane(name, t, lead, h, w)
         tensors += [u, v]
     if need_wv:
         if (
             data.dtype != torch.uint8
-            or data.shape != (3, h, w)
-            or data.stride()[1:] != (w, 1)
+            or tuple(data.shape) != (*lead, 3, h, w)
+            or data.stride()[-2:] != (w, 1)
         ):
-            raise ValueError(f"data must be (3, {h}, {w}) u8 with contiguous planes")
+            raise ValueError(f"data must be {(*lead, 3, h, w)} u8 with contiguous planes")
         tensors.append(data)
         if mask is not None:
-            _check_plane("mask", mask, h, w)
+            _check_plane("mask", mask, lead, h, w)
             tensors.append(mask)
     if rect is not None:
         if rect.dtype != torch.int32 or rect.shape != (4,) or not rect.is_contiguous():
@@ -182,7 +208,12 @@ def vs_wv_counts(
     device memory and clamp it (:func:`convert.clamp_rect`), the vectorscope
     counts only in-rect pixels, and the waveform keeps its (3, 256, w)
     shape with the columns outside the rect zero.  The launches' shapes
-    depend on (h, w) alone, never on the rect.  A CPU tensor runs the plain
+    depend on (h, w) alone, never on the rect.
+
+    A batch, a leading B on every input ((B, h, w) u and v, (B, 3, h, w)
+    data, (B, h, w) mask; each frame's planes contiguous, the frames at any
+    stride), counts in one call with (B, 256, 256) and (B, 3, 256, w)
+    outputs; one rect serves every frame.  A CPU tensor runs the plain
     version; a CUDA tensor launches K2.
     """
     if not (need_vs or need_wv):
@@ -195,29 +226,39 @@ def vs_wv_counts(
         raise ValueError(f"vs_wv_counts: unsupported device {ref.device}")
     h, w = check_stats_inputs(u, v, data, mask, need_vs=need_vs, need_wv=need_wv, rect=rect)
     dev = ref.device
+    batched = _batched(u, data, need_vs)
+    lead = tuple(ref.shape[:1]) if batched else ()
+    plane_stride = data.stride(-3) if need_wv else 0
     plan = stats_plan(
         h, w, vs_aligned=bool(need_vs and _aligned(u, v)),
-        wv_aligned=bool(need_wv and _aligned(data, mask) and data.stride(0) % 16 == 0),
+        wv_aligned=bool(need_wv and _aligned(data, mask) and plane_stride % 16 == 0),
         need_vs=need_vs, need_wv=need_wv)
     # both outputs are written in full by the kernels; an empty plane
     # launches nothing and its vectorscope is zero
     alloc = torch.empty if h * w else torch.zeros
-    vs = alloc((VS_SIZE, VS_SIZE), dtype=torch.int32, device=dev) if need_vs else None
-    wv = alloc((3, WV_SIZE, w), dtype=torch.int32, device=dev) if need_wv else None
-    # the clusters' vectorscope partials; a single cluster writes vs itself
+    vs = alloc((*lead, VS_SIZE, VS_SIZE), dtype=torch.int32, device=dev) if need_vs else None
+    wv = alloc((*lead, 3, WV_SIZE, w), dtype=torch.int32, device=dev) if need_wv else None
+    # the clusters' vectorscope partials, per frame; a single cluster writes
+    # vs itself
     partial = vs
     if need_vs and plan.vs_clusters > 1:
-        partial = torch.empty((plan.vs_clusters, VS_SIZE * VS_SIZE), dtype=torch.int32,
+        partial = torch.empty((*lead, plan.vs_clusters, VS_SIZE * VS_SIZE), dtype=torch.int32,
                               device=dev)
+    strides = (0, 0, 0, 0)
+    if batched:
+        strides = tuple(_frame_stride(t) for t in (
+            u if need_vs else None, v if need_vs else None, data if need_wv else None,
+            mask if need_wv else None))
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _kernels.library()
     with torch.cuda.device(dev):
         rc = lib.ocm_scope_stats(
             ctypes.addressof(plan),
             ptr(u) if need_vs else None, ptr(v) if need_vs else None,
-            ptr(data) if need_wv else None, data.stride(0) if need_wv else 0,
+            ptr(data) if need_wv else None, plane_stride,
             ptr(mask) if need_wv else None, ptr(rect), h, w, ptr(vs), ptr(partial), ptr(wv),
-            int(need_vs), int(need_wv), _kernels.stream_handle(dev),
+            int(need_vs), int(need_wv), lead[0] if batched else 1, *strides,
+            _kernels.stream_handle(dev),
         )
     vs_wv_counts.launches += 1
     if (plan.vs_vec or not need_vs) and (plan.wv_vec or not need_wv):

@@ -256,19 +256,23 @@ def test_dynamic_dock_step_cuda_graph_replay(cuda):
     step = make_dock_step(136, 240, input_format="nv12", out_height=900, dynamic_roi=True,
                           dock=DockConfig(show_focuspeaking=True), device=cuda)
     rect = torch.tensor(RECTS[0], dtype=torch.int32, device=cuda)
+    # the uncaptured step, captured here by hand (the builder's own capture
+    # is tested in test_captured_steps_equal_eager)
+    eager_step = step.eager
     side = torch.cuda.Stream(cuda)
     side.wait_stream(torch.cuda.current_stream(cuda))
     with torch.cuda.stream(side):
         for _ in range(2):
-            step((y, uv), 2.0, rect)
+            eager_step((y, uv), 2.0, rect)
     torch.cuda.current_stream(cuda).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = step((y, uv), 2.0, rect)
+        out = eager_step((y, uv), 2.0, rect)
     for r in RECTS[1:]:
         rect.copy_(torch.tensor(r, dtype=torch.int32))
         graph.replay()
-        eager = step((y, uv), 2.0, torch.tensor(r, dtype=torch.int32, device=cuda)).to_numpy()
+        eager = eager_step((y, uv), 2.0,
+                           torch.tensor(r, dtype=torch.int32, device=cuda)).to_numpy()
         for k, v in out.to_numpy().items():
             assert np.array_equal(v, eager[k]), (r, k)
 
@@ -413,3 +417,162 @@ def test_dock_settled_frame_launches_k3_once(cuda):
             panels.append(d.render(width=256, height=900))
         assert fo.fused_overlays_planes.launches == launches + 1, i
         assert np.array_equal(*panels), i
+
+
+BATCH_SHAPES = [(13, 17), (65, 144), (129, 131), (131, 270)]
+TMS = (0.0, 1.5, 4.25)
+
+
+def _at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A copy of ``t`` inside a larger buffer, ``off`` elements from its
+    start (a base that is not 16-byte aligned unless off = 0)."""
+    buf = torch.empty(off + t.numel(), dtype=t.dtype, device=t.device)
+    out = buf[off:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _stack_plain(fn, *batched, **kw):
+    """A batched kernel's plain version: the single-frame plain version on
+    each frame, stacked."""
+    outs = [fn(*(x[b] for x in batched), **kw) for b in range(batched[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(None if o[0] is None else torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize("off", [0, 1, 5])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("h,w", BATCH_SHAPES)
+def test_batched_k1_k2_equal_per_frame_plain(cuda, h, w, packed, off):
+    """K1 and K2 on a batch of 3 frames (one launch each) equal their
+    single-frame plain versions frame by frame, each frame with its own
+    clock, at odd and overhang shapes and on bases that are not 16-byte
+    aligned."""
+    frames = [_frame(h, w, 300 + b, flat=b == 1) for b in range(3)]
+    arr = np.stack([f.view(np.int32)[..., 0] if packed else np.moveaxis(f, -1, 0)
+                    for f in frames])
+    x = _at_offset(torch.from_numpy(np.ascontiguousarray(arr)).to(cuda), off)
+    tms = torch.tensor(TMS, dtype=torch.float32, device=cuda)
+    for scale in (1, 2, 3):
+        kw = dict(packed=packed, cs=1 + scale % 2, scale=scale, **ARGS)
+        before = tp.frame_pass.launches
+        got = tp.frame_pass(x, tms, **kw)
+        assert tp.frame_pass.launches == before + 1
+        ref = tuple(torch.stack([tp.frame_pass_reference(x[b], tms[b], **kw)[i]
+                                 for b in range(3)]) for i in range(5))
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), scale
+        for yuv_data in (False, True):
+            inputs = tp.stats_inputs(got[0], got[1], yuv_data)
+            for need_vs, need_wv in ((True, True), (True, False), (False, True)):
+                kw2 = dict(need_vs=need_vs, need_wv=need_wv)
+                before = ss.vs_wv_counts.launches
+                counts = ss.vs_wv_counts(*inputs, **kw2)
+                assert ss.vs_wv_counts.launches == before + 1
+                per_frame = [ss.vs_wv_counts_reference(
+                    *(None if t is None else t[b] for t in inputs), **kw2) for b in range(3)]
+                for i, a in enumerate(counts):
+                    want = None if per_frame[0][i] is None else torch.stack(
+                        [o[i] for o in per_frame])
+                    assert (a is None and want is None) or torch.equal(a, want), (
+                        scale, yuv_data, need_vs, need_wv)
+
+
+@pytest.mark.parametrize("off", [0, 1, 5])
+@pytest.mark.parametrize("h,w", [(2, 8), (66, 142), (130, 256)])
+def test_batched_nv12_decode_equals_per_frame_plain(cuda, h, w, off):
+    """K4 and K5 on a batch of 3 NV12 / P010 frames, one launch each, equal
+    their plain versions frame by frame."""
+    import chip_smoke
+
+    for bits in (8, 10):
+        pairs = [chip_smoke.make_nv12(h, w, 40 + b, bits, msb=bits > 8) for b in range(3)]
+        y = _at_offset(torch.from_numpy(np.stack([p[0] for p in pairs])).to(cuda), off)
+        uv = _at_offset(torch.from_numpy(np.stack([p[1] for p in pairs])).to(cuda), off)
+        if bits == 8:
+            before = dec.nv12_decode.launches
+            got = dec.nv12_decode(y, uv, cs=2)
+            assert dec.nv12_decode.launches == before + 1
+            want = _stack_plain(cv.nv12_packed_reference, y, uv, cs=2)
+        else:
+            before = dec.nv12_16_decode.launches
+            got = dec.nv12_16_decode(y, uv, cs=1, shift=8)
+            assert dec.nv12_16_decode.launches == before + 1
+            want = _stack_plain(cv.nv12_16_packed_reference, y, uv, cs=1, shift=8)
+        assert torch.equal(got, want), bits
+
+
+def _bright_frame(h, w, seed):
+    """A random frame whose top rows are bright enough for the zebra."""
+    f = _frame(h, w, seed)
+    f[: h // 3, :, :3] = np.maximum(f[: h // 3, :, :3], 215)
+    return f
+
+
+def _captured_cases(cuda):
+    """(name, captured step, argument lists for tm = 1.0 and 4.0)."""
+    from obs_color_monitor_tpu_torch import make_batched_step
+
+    h, w = 136, 240
+    f = _bright_frame(h, w, 21)
+    nv = tuple(torch.from_numpy(a).to(cuda) for a in _nv12_pair(h, w, 22))
+    packed = frame_from_numpy(f.view(np.uint32)[..., 0], "packed", cuda)
+    dock = DockConfig(show_focuspeaking=True)
+    rect = torch.tensor((20, 10, 100, 60), dtype=torch.int32, device=cuda)
+    frames = torch.from_numpy(np.stack([_bright_frame(h, w, 23 + b) for b in range(3)])).to(cuda)
+    tms = lambda t: torch.tensor([t, t + 1.5, t + 3.25], dtype=torch.float32, device=cuda)
+    return [
+        ("full packed", make_full_step(h, w, input_format="packed", device=cuda),
+         lambda t: (packed, t)),
+        ("full nv12", make_full_step(h, w, input_format="nv12", device=cuda),
+         lambda t: (nv, torch.tensor(t, dtype=torch.float32, device=cuda))),
+        ("dock nv12", make_dock_step(h, w, input_format="nv12", out_height=900, dock=dock,
+                                     device=cuda), lambda t: (nv, t)),
+        ("dock dynamic", make_dock_step(h, w, out_height=900, dynamic_roi=True, dock=dock,
+                                        device=cuda),
+         lambda t: (frame_from_numpy(f, "rgba", cuda), t, rect)),
+        ("dock dynamic host rect", make_dock_step(h, w, out_height=900, dynamic_roi=True,
+                                                  dock=dock, device=cuda),
+         lambda t: (frame_from_numpy(f, "rgba", cuda), t, (20, 10, 100, 60))),
+        ("batched", make_batched_step(h, w, device=cuda), lambda t: (frames, tms(t))),
+    ]
+
+
+def _nv12_pair(h, w, seed):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 256, (h, w), np.uint8)
+    y[: h // 3] = np.maximum(y[: h // 3], 220)
+    return y, rng.integers(100, 156, (h // 2, w), np.uint8)
+
+
+def _host(out) -> dict:
+    return {k: v.cpu().numpy() for k, v in out._asdict().items() if v is not None}
+
+
+def test_captured_steps_equal_eager(cuda):
+    """Every captured step (the full step, packed and NV12; the dock step,
+    static and dynamic, with a rect tensor or host ints; the batched step)
+    replays equal to its eager step at tm = 1.0 and 4.0, the zebra differs
+    between the two (a frozen clock fails), and a result from an earlier
+    call is unchanged after a later call."""
+    def eager_args(args):  # the eager dynamic step takes the rect as a tensor
+        return [torch.tensor(a, dtype=torch.int32, device=cuda) if isinstance(a, tuple)
+                and all(isinstance(v, int) for v in a) else a for a in args]
+
+    for name, step, args in _captured_cases(cuda):
+        outs = []
+        for t in (1.0, 4.0):
+            got = _host(step(*args(t)))
+            want = _host(step.eager(*eager_args(args(t))))
+            assert got.keys() == want.keys(), name
+            for k in want:
+                assert np.array_equal(got[k], want[k]), (name, t, k)
+            outs.append(got)
+        field = "panel" if "dock" in name else "zebra"
+        assert not np.array_equal(outs[0][field], outs[1][field]), name
+        first = step(*args(1.0))
+        step(*args(7.5))
+        for k, v in _host(first).items():
+            assert np.array_equal(v, outs[0][k]), (name, k)
+        assert step.graphs == 1, name

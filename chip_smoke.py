@@ -71,7 +71,22 @@ any failure raises and the exit code is non-zero:
    the sum of its kernels' durations and its span (first start to last
    end: K2's two counts overlap);
 6. torch.profiler windows over 10 calls of each step, eager and replayed:
-   device time per kernel and the device's busy share of the window.
+   device time per kernel and the device's busy share of the window;
+7. the host pipeline (``obs_color_monitor_tpu_torch.pipeline`` and the
+   CLI) at 3840x2160 NV12, stats at target_scale=2, the new-dock panel
+   with focus peaking: a driver-fed ``models.Dock`` (24 frames, a flush
+   after each) with every panel equal to a directly driven Dock on the card
+   and the last one, with the published statistics, to a CPU Dock, one
+   settled graph and no hub fan-out in steady state, and its P010 form;
+   ``python -m obs_color_monitor_tpu_torch`` in process on a 4K ``.nv12``
+   and ``.p010`` file (``dock``, ``--one-program``, ``scope vectorscope``
+   and ``waveform``, ``--out-video``, ``--live`` with one image fetched
+   over HTTP, ``info``), each PNG equal to the directly driven result
+   (step 4's rules for the launch counts apply to each); after the timing,
+   the driver soak: a fresh Dock fed while its worker captures, then
+   unpaced and 60 fps windows, each plain and under torch.profiler: frames
+   pushed / processed / dropped, the sink's frames per second, push-to-panel
+   latency, the device busy share and where the producer's time goes.
 
 Then the total wall time, one JSON line with the per-kernel results, the
 card line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -1058,6 +1073,31 @@ def bincount_index(u, v, data, mask, need_vs=True, need_wv=True):
     return torch.cat(parts), spare + 1
 
 
+def library_counts_batched(u, v, data, mask):
+    """``(fn, check)`` as :func:`library_counts` for a batch (a leading B on
+    each input): one ``torch.bincount`` over every frame's index, frame b's
+    bins offset by b times one frame's bin count."""
+    import torch
+
+    from obs_color_monitor_tpu_torch.ops import scope_stats as ss
+
+    b = u.shape[0]
+    parts = [bincount_index(u[i], v[i], data[i], mask[i]) for i in range(b)]
+    n = parts[0][1]
+    idx = torch.cat([p[0] + i * n for i, p in enumerate(parts)])
+    fn = lambda: torch.bincount(idx, minlength=n * b)
+
+    def check(name):
+        bins = fn().to(torch.int32).view(b, n)
+        vs, wv = ss.vs_wv_counts(u, v, data, mask)
+        if not (torch.equal(bins[:, :65536].reshape(vs.shape), vs)
+                and torch.equal(bins[:, 65536:n - 1].reshape(wv.shape), wv)):
+            raise AssertionError(f"{name}: torch.bincount differs from the kernel's counts")
+        print(f"{name}: torch.bincount equals the kernel's counts", flush=True)
+
+    return fn, check
+
+
 def library_counts(u, v, data, mask, need_vs=True, need_wv=True, rect=None):
     """``(fn, check)``: ``fn`` times the one bincount call; ``check`` raises
     unless its bins equal K2's counts in the same mode.  With a dynamic
@@ -1256,6 +1296,8 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     fns["k1_b4"] = lambda: pl.frame_pass(b4, bsteps[4][2], **kw)
     k2_b4 = pl.stats_inputs(*pl.frame_pass(b4, bsteps[4][2], **kw)[:2], False)
     fns["k2_b4"] = lambda: ss.vs_wv_counts(*k2_b4)
+    fns["k2_b4_library"], check = library_counts_batched(*k2_b4)
+    check("K2 batched B=4 library")
     _, (yb, uvb), _ = batch_input(H4K, W4K, "nv12", 2, 1200, device)
     y16b, uv16b = (torch.stack([t, t]) for t in (y16, uv16))
     fns["k4_b2"] = lambda: dec.nv12_decode(yb, uvb, cs=2)
@@ -1447,6 +1489,463 @@ def phase_profile(device, card: str) -> None:
                    "models.Dock nv12 settled", card)
 
 
+# ---------------------------------------------------------------------------
+# the host pipeline: the driver-fed Dock, the driver soak and the CLI
+# ---------------------------------------------------------------------------
+
+DRIVER_FRAMES = 24  # the driver-fed Dock's equality run
+SOAK_FRAMES = 240  # each soak window (unpaced, then paced at SOAK_FPS)
+SOAK_FPS = 60.0
+CLI_FRAMES = 16
+
+
+def nv12_buffers(h: int, w: int, n: int, seed: int, bits: int = 8, msb: bool = False) -> list:
+    """``n`` NV12 (or P010) frames, each one contiguous (h * 3/2, w) buffer
+    whose row slices are its planes, as a file read or a decoder gives
+    them."""
+    return [np.concatenate(make_nv12(h, w, seed + i, bits, msb)) for i in range(n)]
+
+
+def panel_dock(device, interleave=None):
+    """The driver phases' Dock: the reference new-dock panel with focus
+    peaking shown, BT709 (AUTO), stats at target_scale=2."""
+    from obs_color_monitor_tpu_torch import DockConfig, ROIConfig
+    from obs_color_monitor_tpu_torch.models import Dock
+
+    roi = ROIConfig() if interleave is None else ROIConfig(interleave=interleave)
+    return Dock(DockConfig(show_focuspeaking=True), roi=roi, device=device)
+
+
+def check_panels(what: str, got: list, want: list) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} panels, expected {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: panel {i} differs")
+
+
+def phase_driver_dock(device, h=H4K, w=W4K, frames=DRIVER_FRAMES, pool=6) -> dict:
+    """A fresh ``models.Dock(DockConfig(show_focuspeaking=True))`` behind a
+    started ``PipelineDriver(dock=, on_panel=)``: ``frames`` NV12 pushes
+    from a pool of pre-made frames, a flush after each so that nothing
+    drops.  Every panel handed to on_panel equals a second Dock on the card
+    driven directly (push_nv12 + render); the last panel and the published
+    vectorscope, waveform and histogram equal a CPU Dock fed the same
+    frames; no worker error, one settled graph, no hub fan-out after the
+    first frames.  Then the P010 form (K5) on 3 frames."""
+    from obs_color_monitor_tpu_torch.ops.convert import nv12_shift
+    from obs_color_monitor_tpu_torch.pipeline import PipelineDriver
+
+    by_path = {}
+    for name, bits, n, pool_n, interleave in (
+            ("driver-fed models.Dock nv12", 8, frames, pool, None),
+            ("driver-fed models.Dock p010", 10, 3, 3, 0)):
+        shift = nv12_shift(bits, True) if bits != 8 else 0
+        bufs = nv12_buffers(h, w, pool_n, 1300 + bits, bits, bits != 8)
+        seq = [bufs[i % pool_n] for i in range(n)]
+        dock = panel_dock(device, interleave)
+        panels, fanout = [], []
+        drv = PipelineDriver(dock=dock, on_panel=lambda p: panels.append(p.cpu().numpy()))
+        process = dock.hub.process
+        dock.hub.process = lambda *a, **k: (fanout.append(len(panels)), process(*a, **k))[1]
+        reset_counts()
+        drv.start()
+        try:
+            for b in seq:
+                if not drv.push_nv12(b[:h], b[h:], shift=shift):
+                    raise AssertionError(f"{name}: a push dropped with a flush between pushes")
+                drv.flush()
+        finally:
+            drv.stop()
+        counts = path_counts(name, read_counts(), ("K1", "K2", "K3", "K5" if bits != 8 else "K4"),
+                             device)
+        s = drv.stats
+        graphs = dock._settled.graphs if dock._settled is not None else 0
+        late = [i for i in fanout if i >= 4]
+        print(f"{name}: {s}, settled graphs {graphs}, hub fan-out at frames {fanout}", flush=True)
+        if s["errors"] or s["dropped"] or s["processed"] + s["interleave_skipped"] != n:
+            raise AssertionError(f"{name}: {s}")
+        if device.type == "cuda" and graphs != 1:
+            raise AssertionError(f"{name}: {graphs} settled graphs, expected 1")
+        if late:
+            raise AssertionError(f"{name}: the hub fan-out ran in steady state, frames {late}")
+        direct, want = panel_dock(device, interleave), []
+        for b in seq:
+            direct.push_nv12(b[:h], b[h:], shift=shift)
+            want.append(direct.render())
+        check_panels(f"{name} vs a directly driven Dock", panels, want)
+        if bits == 8:
+            cpu = panel_dock("cpu", interleave)
+            for b in seq:  # pushes alone: each frame through the hub fan-out
+                cpu.push_nv12(b[:h], b[h:])
+            check_panels(f"{name}: last panel vs the CPU Dock", panels[-1:], [cpu.render()])
+            for what, a, b in (
+                    ("vectorscope", dock.vectorscope._read().cpu().numpy(),
+                     cpu.vectorscope._read().numpy()),
+                    ("waveform", dock.waveform.counts(), cpu.waveform.counts()),
+                    ("histogram", dock.histogram.counts(), cpu.histogram.counts())):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{name}: the published {what} differs from the CPU's")
+        print(f"{name}: {n} panels equal to a directly driven Dock"
+              + (", the last panel and the published vectorscope, waveform and histogram "
+                 "equal to the CPU Dock's" if bits == 8 else ""), flush=True)
+        by_path[name] = counts
+    return by_path
+
+
+def percentile(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q / 100 * len(xs)))]
+
+
+def busy_ms(events) -> float:
+    """The union of the device intervals of a profile, ms (the upload
+    stream's copies overlap the worker's kernels)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1000
+
+
+def soak_window(drv, bufs, h, n, fps, pushes, landed, profile=False):
+    """``n`` pushes, unpaced (``fps`` None) or paced, then a flush: the
+    window's metrics.  ``pushes`` / ``landed`` are the driver's running
+    lists (the k-th landed panel is the k-th accepted push's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    k0, stats0, stage0 = len(pushes), drv.stats, drv.staging
+    activity = ProfilerActivity.CUDA if drv.device.type == "cuda" else ProfilerActivity.CPU
+    prof = tprofile(activities=[activity]) if profile else None
+    if prof is not None:
+        prof.start()
+    t0 = time.perf_counter()
+    for i in range(n):
+        if fps:
+            due = t0 + i / fps
+            now = time.perf_counter()
+            if due > now:
+                time.sleep(due - now)
+        t = time.perf_counter()
+        b = bufs[i % len(bufs)]
+        if drv.push_nv12(b[:h], b[h:]):
+            pushes.append(t)
+    drv.flush(timeout=120)
+    if drv.device.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = {"pushed": drv.stats["pushed"] - stats0["pushed"],
+           "dropped": drv.stats["dropped"] - stats0["dropped"],
+           "processed": drv.stats["processed"] - stats0["processed"],
+           "errors": drv.stats["errors"] - stats0["errors"]}
+    lat = [(landed[k] - pushes[k]) * 1e3 for k in range(k0, len(pushes))]
+    out["sink_fps"] = (len(pushes) - k0) / (landed[-1] - pushes[k0])
+    out["lat_p50"], out["lat_p90"], out["lat_p99"] = (percentile(lat, q) for q in (50, 90, 99))
+    out["n_lat"] = len(lat)
+    uploads = max(1, drv.staging["uploads"] - stage0["uploads"])
+    out["host_copy_ms"] = (drv.staging["host_copy_s"] - stage0["host_copy_s"]) / uploads * 1e3
+    out["slot_wait_ms"] = (drv.staging["wait_s"] - stage0["wait_s"]) / uploads * 1e3
+    out["window_s"] = t1 - t0
+    if prof is not None:
+        prof.stop()
+        events = device_events(prof)
+        h2d = [e for e in events if "HtoD" in e.name]
+        out["busy"] = busy_ms(events) / ((t1 - t0) * 1e3)
+        out["h2d_ms"] = sum(e.time_range.elapsed_us() for e in h2d) / 1000 / max(1, len(h2d))
+        out["h2d_n"] = len(h2d)
+    return out
+
+
+def phase_driver_soak(device, card: str, h=H4K, w=W4K, frames=SOAK_FRAMES) -> dict:
+    """The driver on a fresh Dock (interleave 0: every frame analyzed and
+    rendered), fed 4K NV12 frames from this thread while its worker warms
+    up and captures the settled step (a thread-local capture beside the
+    producer's uploads); then the measured windows: unpaced (push as fast
+    as the producer can) and paced at 60 fps, each once plain and once
+    under torch.profiler (the device busy share and the uploads' device
+    time).  The sink (on_panel) copies each panel to the host.  Fails on a
+    worker error, on more than one settled graph, and if the paced run
+    drops a frame while the unpaced run sustains more than 60 fps."""
+    from obs_color_monitor_tpu_torch.pipeline import PipelineDriver
+
+    bufs = nv12_buffers(h, w, 6, 1400)
+    dock = panel_dock(device, 0)
+    pushes, landed = [], []
+
+    def on_panel(p):
+        p.cpu()
+        landed.append(time.perf_counter())
+
+    drv = PipelineDriver(dock=dock, on_panel=on_panel)
+    reset_counts()
+    drv.start()
+    try:
+        warm = soak_window(drv, bufs, h, 40, None, pushes, landed)
+        runs = {"unpaced": soak_window(drv, bufs, h, frames, None, pushes, landed),
+                "paced": soak_window(drv, bufs, h, frames, SOAK_FPS, pushes, landed),
+                "unpaced profiled": soak_window(drv, bufs, h, frames // 2, None, pushes, landed,
+                                                True),
+                "paced profiled": soak_window(drv, bufs, h, frames // 2, SOAK_FPS, pushes,
+                                              landed, True)}
+    finally:
+        drv.stop()
+    name = "driver soak"
+    counts = path_counts(name, read_counts(), ("K1", "K2", "K3", "K4"), device)
+    graphs = dock._settled.graphs if dock._settled is not None else 0
+    print(f"soak warm-up (fresh Dock, capture during pushes): {warm['pushed']} pushed, "
+          f"{warm['processed']} processed, {warm['dropped']} dropped, errors {warm['errors']}, "
+          f"settled graphs {graphs}  [{card}]", flush=True)
+    for label, r in runs.items():
+        line = (f"soak {label}: pushed {r['pushed']} processed {r['processed']} dropped "
+                f"{r['dropped']}, sink {r['sink_fps']:.2f} fps, push-to-panel ms median "
+                f"{r['lat_p50']:.3f} p90 {r['lat_p90']:.3f} p99 {r['lat_p99']:.3f} "
+                f"(n {r['n_lat']}), producer ms/frame: host copy into pinned "
+                f"{r['host_copy_ms']:.3f}, slot wait {r['slot_wait_ms']:.3f}")
+        if "busy" in r:
+            line += (f", device busy {100 * r['busy']:.1f}% of the window, H2D "
+                     f"{r['h2d_ms']:.4f} ms/copy ({r['h2d_n']} copies)")
+        print(line + f", window {r['window_s']:.3f} s  [{card}]", flush=True)
+    errors = warm["errors"] + sum(r["errors"] for r in runs.values())
+    if errors:
+        raise AssertionError(f"{name}: {errors} worker errors")
+    if device.type == "cuda" and graphs != 1:
+        raise AssertionError(f"{name}: {graphs} settled graphs, expected 1")
+    if runs["unpaced"]["sink_fps"] > SOAK_FPS and runs["paced"]["dropped"]:
+        raise AssertionError(f"{name}: the paced run dropped {runs['paced']['dropped']} frames "
+                             f"while the unpaced run sustains {runs['unpaced']['sink_fps']:.1f}")
+    return {name: counts}
+
+
+def read_png(path) -> np.ndarray:
+    """A PNG as an array: through PIL where present, else the filter-0 rows
+    that the package's own encoder writes (``utils.image_io.encode_png``)."""
+    import io
+    import struct
+    import zlib
+
+    data = path.read_bytes() if hasattr(path, "read_bytes") else bytes(path)
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        return np.asarray(Image.open(io.BytesIO(data)))
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, _, ctype = ihdr[:4]
+    c = 4 if ctype == 6 else 3
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
+    if (rows[:, 0] != 0).any():
+        raise AssertionError("read_png: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, c)
+
+
+def y4m_frames(path, w: int, h: int) -> list:
+    """The raw (Y, U, V) C444 planes of each frame of a Y4M file."""
+    data = path.read_bytes()
+    pos, out, n = data.index(b"\n") + 1, [], w * h
+    while pos < len(data):
+        if data[pos:pos + 6] != b"FRAME\n":
+            raise AssertionError(f"{path}: no frame marker at byte {pos}")
+        pos += 6
+        out.append(tuple(np.frombuffer(data, np.uint8, n, pos + k * n).reshape(h, w)
+                         for k in range(3)))
+        pos += 3 * n
+    return out
+
+
+def phase_cli(device, h=H4K, w=W4K, frames=CLI_FRAMES) -> dict:
+    """``python -m obs_color_monitor_tpu_torch`` in process (``main([...])``)
+    on ``--device cuda``, on a 4K ``.nv12`` file and a ``.p010`` file:
+    ``dock`` (the fan-out route), ``dock --one-program``, ``scope
+    vectorscope`` and ``scope waveform``, ``dock --out-video`` (every
+    recorded frame equal to the Y4M encoding of a directly driven Dock's
+    panel), ``dock --live`` (every published frame once, in order, frame
+    i's upload issued before frame i-1's publication, one image fetched
+    over HTTP from localhost equal to one of them), ``dock`` on P010 and
+    ``info``.  Each command exits 0; each PNG equals the panel (or scope
+    image) of a Dock (or scope) driven directly with the same frames."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    from obs_color_monitor_tpu_torch import ROIConfig, VectorscopeConfig, WaveformConfig
+    from obs_color_monitor_tpu_torch.__main__ import main as cli
+    from obs_color_monitor_tpu_torch.models import Dock, Vectorscope, Waveform
+    from obs_color_monitor_tpu_torch.models import dock as dock_mod
+    from obs_color_monitor_tpu_torch.pipeline import live
+    from obs_color_monitor_tpu_torch.pipeline.ingest import NV12Source
+    from obs_color_monitor_tpu_torch.pipeline.sinks import rgb_to_yuv_limited
+    from obs_color_monitor_tpu_torch.utils.image_io import encode_frame
+
+    by_path = {}
+    size = ["--size", f"{w}x{h}", "--device", device.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        nv12, p010 = tmp / "x.nv12", tmp / "x.p010"
+        pool = nv12_buffers(h, w, 4, 1500)
+        with open(nv12, "wb") as f:
+            for i in range(frames):
+                f.write(pool[i % len(pool)].tobytes())
+        with open(p010, "wb") as f:
+            for b in nv12_buffers(h, w, 3, 1510, 10, True):
+                f.write(b.astype("<u2").tobytes())
+        src = NV12Source(str(nv12), w, h, cs=2)
+        planes = list(src.frames_nv12(frames))
+
+        def run(name, args, needs):
+            out = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli(args + (size if args[0] != "info" else size[2:]))
+            dt = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"cli {name}: exit {rc}\n{out.getvalue()}")
+            if needs:
+                by_path[f"cli {name}"] = path_counts(f"cli {name}", read_counts(), needs, device)
+            print(f"cli {name}: exit 0 in {dt:.2f} s: {out.getvalue().strip()[-300:]}",
+                  flush=True)
+            return out.getvalue()
+
+        def same(name, png, want):
+            got = read_png(png)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"cli {name}: the PNG differs from the directly driven "
+                                     "result")
+            print(f"cli {name}: PNG {got.shape[1]}x{got.shape[0]} equal to the directly "
+                  "driven result", flush=True)
+
+        def fanout_dock(seq, shift=0):
+            d = Dock(roi=ROIConfig(target_scale=2, interleave=1), device=device)
+            for y, uv in seq:
+                d.push_nv12(y, uv, cs=2, shift=shift)
+            return d.render(width=512, height=1536)
+
+        # the dock, fan-out route: pushes, one render at the end
+        run("dock nv12", ["dock", "--input", str(nv12), "--frames", str(frames),
+                          "--out", str(tmp / "dock.png")], ("K1", "K2", "K3", "K4"))
+        same("dock nv12", tmp / "dock.png", fanout_dock(planes))
+        # --one-program: host-decoded RGBA through make_dock_step
+        run("dock --one-program", ["dock", "--input", str(nv12), "--frames", str(frames),
+                                   "--one-program", "--out", str(tmp / "one.png")],
+            ("K1", "K2", "K3"))
+        d = Dock(roi=ROIConfig(target_scale=2, interleave=1), device=device)
+        for n, f in enumerate(src.frames(frames)):
+            want = d.render_device(f, tm=n / 15.0, width=512, height=1536)
+        same("dock --one-program", tmp / "one.png", want)
+        # one scope each
+        for scope, cls, cfg, needs in (
+                ("vectorscope", Vectorscope, VectorscopeConfig, ("K1", "K4", "K7")),
+                ("waveform", Waveform, WaveformConfig, ("K1", "K4", "K8"))):
+            run(f"scope {scope}", ["scope", scope, "--input", str(nv12), "--frames",
+                                   str(frames), "--out", str(tmp / f"{scope}.png")], needs)
+            sc = cls(cfg(target_scale=2), device=device)
+            for y, uv in planes:
+                sc.push_nv12(y, uv, cs=2)
+                sc._hub.tick()
+            same(f"scope {scope}", tmp / f"{scope}.png", sc.render())
+        # --out-video: a render per frame (the settled route), recorded
+        run("dock --out-video", ["dock", "--input", str(nv12), "--frames", str(frames),
+                                 "--out", str(tmp / "video.png"),
+                                 "--out-video", str(tmp / "panel.y4m")],
+            ("K1", "K2", "K3", "K4"))
+        d, want = Dock(roi=ROIConfig(target_scale=2, interleave=1), device=device), []
+        for y, uv in planes:
+            d.push_nv12(y, uv, cs=2)
+            want.append(d.render(width=512, height=1536))
+        same("dock --out-video", tmp / "video.png", want[-1])
+        rec = y4m_frames(tmp / "panel.y4m", 512, 1536)
+        if len(rec) != frames or any(
+                not all(np.array_equal(a, b) for a, b in zip(r, rgb_to_yuv_limited(p, 2)))
+                for r, p in zip(rec, want)):
+            raise AssertionError("cli dock --out-video: the recording differs from the "
+                                 "directly driven panels")
+        print(f"cli dock --out-video: {len(rec)} recorded frames equal to the directly driven "
+              "panels' Y4M encoding", flush=True)
+        # --live: publication order, one frame late, and one HTTP fetch
+        events, published, fetched = [], [], []
+        upload, publish = dock_mod.nv12_device_planes, live.MJPEGServer.publish
+        servers = []
+
+        def rec_upload(*a, **k):
+            events.append(("upload", sum(e[0] == "upload" for e in events)))
+            return upload(*a, **k)
+
+        def rec_publish(self, img, *a, **k):
+            events.append(("publish", len(published)))
+            published.append(np.array(img))
+            out = publish(self, img, *a, **k)
+            if not servers:  # fetch the first frame over HTTP while the server runs
+                servers.append(self)
+                t = threading.Thread(target=fetch, args=(self.url + "frame",), daemon=True)
+                t.start()
+                t.join(timeout=60)
+            return out
+
+        def fetch(url):
+            for _ in range(200):
+                try:
+                    with urllib.request.urlopen(url, timeout=5) as r:
+                        fetched.append(r.read())
+                        return
+                except urllib.error.HTTPError:
+                    time.sleep(0.01)
+
+        dock_mod.nv12_device_planes, live.MJPEGServer.publish = rec_upload, rec_publish
+        try:
+            run("dock --live", ["dock", "--input", str(nv12), "--frames", str(frames),
+                                "--live", "--port", "0", "--fps", "60"],
+                ("K1", "K2", "K3", "K4"))
+        finally:
+            dock_mod.nv12_device_planes, live.MJPEGServer.publish = upload, publish
+        check_panels("cli dock --live: published frames vs the directly driven panels",
+                     published, want)
+        ups = [events.index(("upload", i)) for i in range(frames)]
+        pubs = [events.index(("publish", i)) for i in range(frames)]
+        if pubs != sorted(pubs) or any(ups[i] > pubs[i - 1] for i in range(1, frames)):
+            raise AssertionError(f"cli dock --live: not published one frame late: {events}")
+        if not fetched:
+            raise AssertionError("cli dock --live: no image fetched over HTTP")
+        # the server encodes what it serves (PNG, or JPEG where PIL is present):
+        # the fetched bytes are one panel's encoding
+        hit = next((i for i, p in enumerate(want) if encode_frame(p)[0] == fetched[0]), None)
+        if hit is None:
+            raise AssertionError("cli dock --live: the fetched image is no frame's panel")
+        print(f"cli dock --live: {len(published)} frames published in order, each frame's "
+              f"upload before the previous frame's publication; the image fetched over HTTP "
+              f"is frame {hit}'s panel", flush=True)
+        # P010 (K5)
+        run("dock p010", ["dock", "--input", str(p010), "--frames", "3",
+                          "--out", str(tmp / "p010.png")], ("K1", "K2", "K3", "K5"))
+        src10 = NV12Source(str(p010), w, h, cs=2, bits=10, msb_aligned=True)
+        same("dock p010", tmp / "p010.png",
+             fanout_dock(list(src10.frames_nv12(3)), src10.nv12_shift))
+        info = json.loads(run("info", ["info"], ()))
+        if device.type == "cuda" and (
+                not info["kernels_built"] or not info["native_runtime"]
+                or info["device_name"] != __import__("torch").cuda.get_device_name(0)):
+            raise AssertionError(f"cli info: {info}")
+    return by_path
+
+
 KERNELS = [  # id, wrapper, source, TPU kernel it replaces, timing key, library key
     ("K1", "frame_pass", "frame_pipeline.cu", "ops/pallas_pipeline.py:149", "k1_random", None),
     ("K2", "vs_wv_counts", "scope_stats.cu", "ops/pallas_stats.py:315", "k2_random",
@@ -1530,6 +2029,7 @@ def kernel_line(launches: dict, by_path: dict, err: dict, t: dict, bounds: dict,
             entry["batched"] = {
                 "B": b, "ms": t[bkey], "device_ms": dev[bkey][0], "graph_ms": dev[bkey][2],
                 "bound_ms": bounds[bb][0], "bound_by": bounds[bb][1],
+                "library_ms": t.get(bkey + "_library"),
                 "launches": sum(c.get(kid, 0) for p, c in by_path.items()
                                 if p.startswith("batched")),
             }
@@ -1578,14 +2078,16 @@ def main() -> int:
     torch.cuda.synchronize()
     by_path = {**phase_main_path(device), **phase_dock_paths(device),
                **phase_ingest_path(device), **phase_dynamic_dock(device),
-               **phase_stream_dock(device), **phase_captured(device), **phase_batched(device)}
+               **phase_stream_dock(device), **phase_captured(device), **phase_batched(device),
+               **phase_driver_dock(device), **phase_cli(device)}
+    phase_golden(device)
+    t, bounds, dev = phase_timing(device, card)
+    phase_profile(device, card)
+    by_path.update(phase_driver_soak(device, card))
     launches: dict = {}
     for counts in by_path.values():
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-    phase_golden(device)
-    t, bounds, dev = phase_timing(device, card)
-    phase_profile(device, card)
     loaded = sorted(m for m in sys.modules if m in ("jax", "obs_color_monitor_tpu")
                     or m.startswith(("jax.", "obs_color_monitor_tpu.")))
     if loaded:

@@ -22,6 +22,14 @@ Layout:
                 scope_stats (K2), fused_overlays (K3), decode (K4, K5);
                 fused.analyze (K1 + K2)
   ops/csrc/     the CUDA sources, built by nvcc at first use (_kernels.py)
+  pipeline/     the host pipeline: FrameQueue, PipelineDriver (pinned
+                uploads on a producer stream), ingest sources, the MJPEG
+                live sink, video sinks, capture targets, profiler probes
+  runtime/      the native host runtime (csrc/ocm_runtime.cpp, built by g++
+                at first use) with NumPy fallbacks
+  registry.py   the source registry; __main__.py the CLI
+                (python -m obs_color_monitor_tpu_torch dock|scope|info)
+  utils/        draw, image_io, persistence, i18n (own locale tables)
 
 Every kernel wrapper picks its route from its input's device: a CPU tensor
 runs the plain PyTorch version, a CUDA tensor launches the kernel.  The

@@ -92,11 +92,20 @@ def _run_all(cmds: list[list[str]], verbose: bool) -> None:
                 proc.wait()
 
 
+def _lib_path() -> Path:
+    return BUILD_DIR / f"libocm_kernels_{source_hash()}.so"
+
+
+def built() -> bool:
+    """Whether the library of the present sources is built."""
+    return _lib_path().exists()
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels (if this source hash is not built yet) and return
     the library path.  The library is linked under a temporary name and
     renamed, so a concurrent or interrupted build never leaves a torn file."""
-    lib = BUILD_DIR / f"libocm_kernels_{source_hash()}.so"
+    lib = _lib_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

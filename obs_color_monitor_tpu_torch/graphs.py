@@ -22,8 +22,9 @@ What a captured step does on a CUDA device:
 * on the first call with a new signature (the shapes and dtypes of the
   arguments) it runs the step twice on a side stream (the warm-up, which
   builds the kernels and every cached constant), then captures one call
-  with ``torch.cuda.graph``.  A capture that fails raises: there is no
-  eager fallback;
+  with ``torch.cuda.graph`` in thread-local mode, so that other threads
+  (a pipeline driver's producer) may go on working meanwhile.  A capture
+  that fails raises: there is no eager fallback;
 * every call copies the arguments in, replays, and returns fresh output
   tensors, one device copy per field, so a result never changes at a later
   call (as JAX's returned arrays do not);
@@ -171,7 +172,10 @@ class CapturedStep:
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         warm = _read_counters(counters)
-        with torch.cuda.graph(graph):
+        # thread-local capture: a driver's producer thread may allocate,
+        # copy and wait on events while this thread captures, which global
+        # capture forbids to every thread of the process
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             outputs = self.eager(*inputs)
         launches = [a - b for a, b in zip(_read_counters(counters), warm)]
         for (obj, name), n in zip(counters, before):

@@ -265,7 +265,9 @@ class CaptureHub:
         self.published_rect = rect
         needs = self.union_needs()
         cs = self.colorspace
-        with torch.profiler.record_function("render_target"):
+        from ..pipeline import profiler
+
+        with profiler.probe("render_target"):
             result = analyze(
                 frame, cs=int(cs), scale=scale, rect=None if full else rect,
                 need_vs=needs.vs, need_wv_rgb=needs.wv_rgb, need_wv_yuv=needs.wv_yuv,
@@ -275,7 +277,7 @@ class CaptureHub:
                               colorspace=cs, cropped=not full)
         self.last_surface = surface
         for c in self.consumers:
-            with torch.profiler.record_function(f"surface_cb:{type(c).__name__}"):
+            with profiler.probe(f"surface_cb:{type(c).__name__}"):
                 c.surface_cb(surface)
         self.frames_processed += 1
         return surface

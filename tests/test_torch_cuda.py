@@ -576,3 +576,130 @@ def test_captured_steps_equal_eager(cuda):
         for k, v in _host(first).items():
             assert np.array_equal(v, outs[0][k]), (name, k)
         assert step.graphs == 1, name
+
+
+# ---------------------------------------------------------------------------
+# the host pipeline on the card: the driver's pinned uploads, a capture while
+# the producer works, and the CLI's pipelined readback
+# ---------------------------------------------------------------------------
+
+
+def _driver_dock(device):
+    from obs_color_monitor_tpu_torch import ROIConfig
+    from obs_color_monitor_tpu_torch.models import Dock
+
+    return Dock(DockConfig(show_focuspeaking=True), roi=ROIConfig(interleave=0),
+                device=device)
+
+
+def _nv12_frames(n, h=270, w=480, seed=40):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (h * 3 // 2, w), np.uint8) for _ in range(n)]
+
+
+def _direct_panels(device, bufs, h=270):
+    """Panels of a Dock on ``device`` driven directly (push_nv12 + render)."""
+    dock = _driver_dock(device)
+    out = []
+    for b in bufs:
+        dock.push_nv12(b[:h], b[h:])
+        out.append(dock.render())
+    return out
+
+
+def test_driver_pushes_while_worker_captures(cuda):
+    """A driver on a fresh Dock (no graph yet), fed unpaced from this thread
+    while the worker warms up and captures the settled step: no worker
+    error, one settled graph, and every landed panel equal to a directly
+    driven Dock fed the accepted frames in the same order."""
+    from obs_color_monitor_tpu_torch.pipeline import PipelineDriver
+
+    bufs = _nv12_frames(40)
+    dock = _driver_dock(cuda)
+    panels = []
+    drv = PipelineDriver(dock=dock, on_panel=lambda p: panels.append(p.cpu().numpy()))
+    accepted = []
+    drv.start()
+    try:
+        for b in bufs:
+            if drv.push_nv12(b[:270], b[270:]):
+                accepted.append(b)
+        drv.flush()
+    finally:
+        drv.stop()
+    assert drv.stats["errors"] == 0
+    assert drv.stats["pushed"] + drv.stats["dropped"] == len(bufs)
+    assert len(panels) == len(accepted) == drv.stats["processed"]
+    assert cuda.type != "cuda" or dock._settled.graphs == 1
+    for i, want in enumerate(_direct_panels(cuda, accepted)):
+        assert np.array_equal(panels[i], want), i
+
+
+def test_driver_pinned_ring_reuse(cuda):
+    """More pushes than the pinned ring has slots (queue depth 1: 3 slots),
+    a flush after each: every panel equal to a directly driven Dock's, one
+    upload per push, the producer's time accounted."""
+    from obs_color_monitor_tpu_torch.pipeline import NV12Frame, PipelineDriver
+
+    bufs = _nv12_frames(10, seed=41)
+    dock = _driver_dock(cuda)
+    panels = []
+    drv = PipelineDriver(dock=dock, queue_depth=1,
+                         on_panel=lambda p: panels.append(p.cpu().numpy()))
+    drv.start()
+    try:
+        for b in bufs:
+            assert drv.push_nv12(b[:270], b[270:])
+            drv.flush()
+    finally:
+        drv.stop()
+    assert drv.stats["errors"] == 0 and len(panels) == 10
+    for i, want in enumerate(_direct_panels(cuda, bufs)):
+        assert np.array_equal(panels[i], want), i
+    if cuda.type == "cuda":
+        assert drv._stager.n_slots == 3 and drv.staging["uploads"] == 10
+        assert drv.staging["host_copy_s"] > 0
+        # a queued frame carries device planes and the upload's event
+        probe = PipelineDriver(dock=_driver_dock(cuda))
+        assert probe.push_nv12(bufs[0][:270], bufs[0][270:])
+        queued = probe.queue.pop(timeout=1.0)
+        assert isinstance(queued, NV12Frame) and queued.ready is not None
+        assert queued.y.is_cuda and queued.uv.is_cuda
+        queued.ready.synchronize()
+        assert np.array_equal(queued.y.cpu().numpy(), bufs[0][:270])
+
+
+def test_cli_pipelined_readback(cuda, monkeypatch, tmp_path):
+    """The --live loop's readback: _Readback hands back each staged image
+    one call late, equal to the image staged; the CLI's live dock publishes
+    every frame once, in order, each equal to a directly driven Dock's
+    panel."""
+    from obs_color_monitor_tpu_torch import __main__ as cli
+    from obs_color_monitor_tpu_torch.pipeline import live as live_mod
+
+    rb = cli._Readback(cuda)
+    imgs = [torch.full((6, 5, 4), i, dtype=torch.uint8, device=cuda) for i in range(5)]
+    got = [rb.stage(img) for img in imgs] + [rb.take()]
+    assert got[0] is None and rb.take() is None
+    for i, g in enumerate(got[1:]):
+        assert isinstance(g, np.ndarray) and (g == i).all(), i
+
+    bufs = _nv12_frames(5, h=48, w=64, seed=42)
+    clip = tmp_path / "clip.nv12"
+    clip.write_bytes(b"".join(b.tobytes() for b in bufs))
+    published = []
+    orig = live_mod.MJPEGServer.publish
+    monkeypatch.setattr(live_mod.MJPEGServer, "publish",
+                        lambda self, img: (published.append(np.array(img)), orig(self, img))[1])
+    rc = cli.main(["dock", "--input", str(clip), "--size", "64x48", "--scale", "1",
+                   "--interleave", "0", "--frames", "5", "--live", "--port", "0",
+                   "--fps", "240", "--out-width", "64", "--out-height", "360",
+                   "--device", cuda.type])
+    assert rc == 0 and len(published) == 5
+    from obs_color_monitor_tpu_torch import ROIConfig
+    from obs_color_monitor_tpu_torch.models import Dock
+
+    dock = Dock(roi=ROIConfig(target_scale=1, interleave=0), device=cuda)
+    for i, b in enumerate(bufs):
+        dock.push_nv12(b[:48], b[48:])
+        assert np.array_equal(published[i], dock.render(width=64, height=360)), i

@@ -1,5 +1,6 @@
-"""The torch port, its model layer included, imports no JAX, nothing of the
-JAX package, and builds no kernel on the CPU path."""
+"""The torch port, its model layer, host pipeline, registry and CLI
+included, imports no JAX, nothing of the JAX package, and builds no kernel
+on the CPU path."""
 
 import os
 import subprocess
@@ -9,7 +10,19 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = """
+import os
 import sys
+opened = []
+
+
+def audit(event, args):  # every file the process opens under the JAX package
+    if event == "open" and args and isinstance(args[0], (str, bytes, os.PathLike)):
+        path = os.path.abspath(os.fsdecode(args[0]))
+        if os.sep + "obs_color_monitor_tpu" + os.sep in path:
+            opened.append(path)
+
+
+sys.addaudithook(audit)
 import numpy as np
 import obs_color_monitor_tpu_torch as ocm
 step = ocm.make_full_step(24, 40, input_format="packed", device="cpu")
@@ -30,9 +43,27 @@ for _ in range(3):
 d.hub.set_roi(2, 2, 12, 8)
 d.push_frame(rgba)
 assert d.hub.last_surface is not None and d.render(64, 200).shape == (200, 64, 4)
+import tempfile
+import obs_color_monitor_tpu_torch.pipeline as pipeline
+import obs_color_monitor_tpu_torch.registry as registry
+from obs_color_monitor_tpu_torch.__main__ import main
+with tempfile.TemporaryDirectory() as tmp:
+    assert main(["dock", "--pattern", "bars", "--size", "64x48", "--frames", "2",
+                 "--device", "cpu", "--out", tmp + "/d.png", "--out-width", "64",
+                 "--out-height", "300"]) == 0
+his = registry.create_source("histogram_source", device="cpu")
+drv = pipeline.PipelineDriver(his._hub)
+drv.start()
+try:
+    assert drv.push_frame(rgba) and drv.push_nv12(y, y[:12])
+    drv.flush()
+finally:
+    drv.stop()
+assert drv.stats["processed"] == 2 and drv.stats["errors"] == 0
 bad = sorted(m for m in sys.modules if m in ("jax", "obs_color_monitor_tpu")
              or m.startswith(("jax.", "jaxlib", "triton", "obs_color_monitor_tpu.")))
 print("LOADED", bad)
+print("OPENED", opened)
 from obs_color_monitor_tpu_torch import _kernels
 print("KERNELS_LOADED", _kernels._lib is not None)  # the CPU route builds nothing
 """
@@ -47,3 +78,4 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert "LOADED []" in res.stdout, res.stdout
     assert "KERNELS_LOADED False" in res.stdout, res.stdout
+    assert "OPENED []" in res.stdout, res.stdout

@@ -189,3 +189,111 @@ def test_from_reference_rejects_unknown_objects():
 
     with pytest.raises(TypeError, match="has no field"):
         tcfg.from_reference(DockConfig())
+
+
+# ---------------------------------------------------------------------------
+# the host pipeline's copies: locales, native runtime, PNG, sinks, settings
+# ---------------------------------------------------------------------------
+
+LOCALES = ("de-DE", "en-US", "fr-FR", "ja-JP", "pt-BR", "zh-CN")
+
+
+@pytest.mark.parametrize("tag", LOCALES)
+def test_locale_tables_equal(tag):
+    """The port's own locale JSON files equal the JAX package's, key for
+    key, and the port reads its own directory."""
+    import json
+    from pathlib import Path
+
+    import obs_color_monitor_tpu.utils.i18n as ji18n
+    import obs_color_monitor_tpu_torch.utils.i18n as ti18n
+
+    jdir = Path(ji18n.__file__).resolve().parents[1] / "data" / "locale"
+    tdir = Path(ti18n._LOCALE_DIR)
+    assert tdir == Path(ti18n.__file__).resolve().parents[1] / "data" / "locale"
+    assert "obs_color_monitor_tpu_torch" in tdir.parts
+    jt = json.loads((jdir / f"{tag}.json").read_text(encoding="utf-8"))
+    tt = json.loads((tdir / f"{tag}.json").read_text(encoding="utf-8"))
+    assert list(jt.items()) == list(tt.items())
+    assert ji18n._EN_US == ti18n._EN_US
+    ti18n.set_locale(tag)
+    try:
+        assert {k: ti18n.text(k) for k in jt} == {k: jt[k] for k in jt}
+    finally:
+        ti18n.set_locale("en-US")
+
+
+def test_native_constants_equal():
+    import obs_color_monitor_tpu.runtime.native as jn
+    import obs_color_monitor_tpu_torch.runtime.native as tn
+
+    assert jn._NV12_COEF == tn._NV12_COEF and jn._KY == tn._KY
+    assert (jn.NativeFileReader.FORMAT_RGBA, jn.NativeFileReader.FORMAT_NV12) == (
+        tn.NativeFileReader.FORMAT_RGBA, tn.NativeFileReader.FORMAT_NV12)
+    assert tn._SRC == jn._SRC  # the one C++ source at the repository root
+    assert "obs_color_monitor_tpu_torch" in tn._LIB_DIR.parts
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_native_outputs_equal(route, monkeypatch):
+    """nv12_to_rgba, yuv_planes_to_rgba, deinterleave_rgba and pattern of
+    the port's runtime equal the JAX package's, through the C++ library and
+    through the NumPy fallback."""
+    import obs_color_monitor_tpu.runtime.native as jn
+    import obs_color_monitor_tpu_torch.runtime.native as tn
+
+    if route == "numpy":
+        monkeypatch.setattr(tn, "_load", lambda: None)
+    else:
+        assert tn.available()
+    rng = np.random.default_rng(11)
+    y = rng.integers(0, 256, (10, 14), np.uint8)
+    uv = rng.integers(0, 256, (5, 14), np.uint8)
+    for cs in (1, 2):
+        assert np.array_equal(tn.nv12_to_rgba(y, uv, cs), jn.nv12_to_rgba(y, uv, cs))
+        c = rng.integers(0, 256, (10, 7), np.uint8)
+        assert np.array_equal(tn.yuv_planes_to_rgba(y, c, c, cs),
+                              jn.yuv_planes_to_rgba(y, c, c, cs))
+    f = rng.integers(0, 256, (6, 9, 4), np.uint8)
+    assert np.array_equal(tn.deinterleave_rgba(f), jn.deinterleave_rgba(f))
+    for kind in ("bars", "ramp", "zoneplate"):
+        for i in (0, 7):
+            assert np.array_equal(tn.pattern(kind, 40, 24, i), jn.pattern(kind, 40, 24, i)), kind
+
+
+def test_encode_png_bytes_equal():
+    import obs_color_monitor_tpu.utils.image_io as jio
+    import obs_color_monitor_tpu_torch.utils.image_io as tio
+
+    rng = np.random.default_rng(5)
+    for shape in ((7, 11, 4), (3, 5, 3), (1, 1, 4)):
+        img = rng.integers(0, 256, shape, np.uint8)
+        assert tio.encode_png(img) == jio.encode_png(img)
+
+
+def test_rgb_to_yuv_limited_equal():
+    import obs_color_monitor_tpu.pipeline.sinks as js
+    import obs_color_monitor_tpu_torch.pipeline.sinks as ts
+
+    assert js._FWD == ts._FWD and js._FFMPEG_CS == ts._FFMPEG_CS
+    f = np.random.default_rng(6).integers(0, 256, (9, 13, 4), np.uint8)
+    for cs in (1, 2):
+        for a, b in zip(js.rgb_to_yuv_limited(f, cs), ts.rgb_to_yuv_limited(f, cs)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert js.ffmpeg_sink_cmd("o.mp4", 33, 17, 29.97, cs=1) == ts.ffmpeg_sink_cmd(
+        "o.mp4", 33, 17, 29.97, cs=1)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_to_dict_equal(name):
+    """persistence.config_to_dict of every config, at its defaults and
+    with every field set through config_from_dict from the JAX dict."""
+    import json
+
+    import obs_color_monitor_tpu.utils.persistence as jp
+    import obs_color_monitor_tpu_torch.utils.persistence as tp
+
+    j, t = getattr(jcfg, name)(), getattr(tcfg, name)()
+    assert json.dumps(jp.config_to_dict(j)) == json.dumps(tp.config_to_dict(t))
+    d = json.loads(json.dumps(jp.config_to_dict(j)))
+    assert tp.config_to_dict(tp.config_from_dict(getattr(tcfg, name), d)) == d

@@ -57,7 +57,18 @@ any failure raises and the exit code is non-zero:
    and K3 must also have taken their fast forms (16-byte loads, cp.async
    stages) on every call (the ``K1 vec`` / ``K2 vec`` / ``K3 vec``
    counts), and the streaming Dock must launch K3 exactly once per frame,
-   settled or moving;
+   settled or moving; then the mesh layer (``obs_color_monitor_tpu_torch.
+   parallel``) under a world-size-1 NCCL group that ``make_mesh`` starts
+   (destroyed after): ``batch_analyze`` on B = 2 4K frames,
+   ``make_batched_step(mesh=)`` at B = 2 packed, ``spatial_analyze`` and
+   ``spatial_pipeline`` (at tm 1.0 and 4.0) on one 4K frame in both
+   component families, each with one K1 and one K2 launch and every output
+   equal to the same calls under a gloo group on the CPU and to the
+   unsharded port (``ops/fused.analyze``, the batched step without a mesh,
+   the plain overlays); the overlay pieces of 2 and 4 ranks emulated in
+   one process (K1 per block with its clock, K3 on the halo rows) equal to
+   the whole frame's; the paths' times by CUDA events and the all-reduce's
+   (12,058,624 bytes of int32 counts a 4K frame) by events and profiler;
 5. timing with CUDA events (warm-up, then the median of 25 runs of 10
    back-to-back calls): each step eagerly (``step.eager``) and as its
    graph replay (input copies and output copies included), per frame: the
@@ -973,6 +984,249 @@ def phase_batched(device, cases=BATCH_CASES) -> dict:
               "frames", flush=True)
         by_path[name] = counts
     return by_path
+
+
+MESH_B = 2  # the mesh phase's batch
+MESH_OV = dict(th_low=0.75, th_high=1.0, peak_th=3062, peak_rgba=(255, 84, 0, 255))
+MESH_COMPONENTS = ("rgb", "yuv")
+
+
+def mesh_inputs(device, h=H4K, w=W4K, b=MESH_B):
+    """(the (b, h, w, 4) frames, the packed batch and its clocks) of the
+    mesh phase on ``device``; frame 0 is the spatial paths' frame."""
+    import torch
+
+    host = np.stack([make_frame(h, w, "random", 3000 + i) for i in range(b)])
+    host[0, ::270, :, :3] = 255  # bright rows, some on the split rows of 2, 4 and 8 ranks
+    _, packed, tms = batch_input(h, w, "packed", b, 3100, device)
+    return torch.from_numpy(host).to(device), packed, tms
+
+
+def mesh_calls(par, mb, mr, frames, packed, tms, step) -> dict:
+    """The mesh phase's calls, by path name: each returns its outputs."""
+    calls = {
+        "mesh batch_analyze B=2": lambda: par.batch_analyze(frames, mb, cs=2),
+        "mesh batched step B=2": lambda: step(packed, tms)._asdict(),
+    }
+    for comp in MESH_COMPONENTS:
+        calls[f"mesh spatial_analyze {comp}"] = (
+            lambda comp=comp: par.spatial_analyze(frames[0], mr, cs=2, components=comp))
+        for tm in CLOCKS:
+            calls[f"mesh spatial_pipeline {comp} tm {tm}"] = (
+                lambda comp=comp, tm=tm: par.spatial_pipeline(
+                    frames[0], mr, cs=2, tm=tm, components=comp, **MESH_OV))
+    return calls
+
+
+def to_host(out) -> dict:
+    """A call's outputs (a tuple or a dict of tensors) as host arrays."""
+    items = out.items() if isinstance(out, dict) else enumerate(out)
+    return {str(k): v.cpu().numpy() for k, v in items if v is not None}
+
+
+def run_mesh(device, h, w, b, timing: bool = False):
+    """Every mesh call on ``device`` over a fresh world-size-1 group (NCCL
+    on a card, gloo on the CPU, started by ``make_mesh``), each with its
+    launch counts read around it alone; with ``timing``, their times.  The
+    group is destroyed before returning.  Returns (outputs by path, counts
+    by path, times)."""
+    import torch
+    import torch.distributed as dist
+
+    from obs_color_monitor_tpu_torch import make_batched_step
+    from obs_color_monitor_tpu_torch import parallel as par
+
+    if dist.is_initialized():
+        raise AssertionError("a process group is already initialized")
+    mb = par.make_mesh(device=device.type)
+    mr = par.make_mesh(axis=par.SPATIAL_AXIS, device=device.type)
+    try:
+        backend = str(dist.get_backend())
+        if backend != ("nccl" if device.type == "cuda" else "gloo"):
+            raise AssertionError(f"make_mesh on {device.type} started a {backend} group")
+        dev = par.mesh_device(mb)
+        frames, packed, tms = mesh_inputs(dev, h, w, b)
+        step = make_batched_step(h, w, mesh=mb, scale=2, input_format="packed")
+        outs, counts = {}, {}
+        for name, call in mesh_calls(par, mb, mr, frames, packed, tms, step).items():
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            reset_counts()
+            out = call()
+            counts[name] = path_counts(name, read_counts(), ("K1", "K6"), device, both_as="K6")
+            outs[name] = to_host(out)
+            if device.type == "cuda" and (counts[name]["K1"], counts[name]["K6"]) != (1, 1):
+                raise AssertionError(f"{name}: {counts[name]}, expected one K1 and one K2 launch")
+        times = mesh_times(par, mb, mr, frames, packed, tms, step, w) if timing else {}
+    finally:
+        dist.destroy_process_group()
+    return outs, counts, times
+
+
+def mesh_times(par, mb, mr, frames, packed, tms, step, w) -> dict:
+    """ms per frame of each mesh path (CUDA events, as ``time_ms``), the
+    unsharded analysis beside them, the all-reduce alone, and the
+    all-reduce's device time in a profile of ``spatial_analyze``."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from obs_color_monitor_tpu_torch.ops.fused import analyze
+
+    counts = torch.zeros(256 * 256 + 3 * 256 * w, dtype=torch.int32, device=frames.device)
+    group = mr.get_group()
+    fns = {
+        "mesh batch_analyze B=2": lambda: par.batch_analyze(frames, mb, cs=2),
+        "mesh batched step B=2": lambda: step(packed, tms),
+        "mesh spatial_analyze": lambda: par.spatial_analyze(frames[0], mr, cs=2),
+        "mesh spatial_pipeline": lambda: par.spatial_pipeline(frames[0], mr, cs=2, tm=1.0,
+                                                              **MESH_OV),
+        "unsharded analyze (K1 + K2, no collective)": lambda: analyze(
+            frames[0], 2, scale=1, need_vs=True, need_wv_rgb=True, need_hi_rgb=True),
+        "all_reduce of the 4K counts": lambda: dist.all_reduce(counts, group=group),
+    }
+    per_frame = {"mesh batch_analyze B=2": MESH_B, "mesh batched step B=2": MESH_B}
+    t = time_ms(fns, reps=10, inner=5)
+    t = {k: v / per_frame.get(k, 1) for k, v in t.items()}
+    calls = 10
+    par.spatial_analyze(frames[0], mr, cs=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            par.spatial_analyze(frames[0], mr, cs=2)
+        torch.cuda.synchronize()
+    nccl_dev = [e for e in device_events(prof) if "nccl" in e.name.lower()]
+    nccl_host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                 and "all_reduce" in e.name]
+    t["all_reduce device ms (profiler, per spatial_analyze)"] = (
+        sum(e.time_range.elapsed_us() for e in nccl_dev) / calls / 1000)
+    t["all_reduce host ms (profiler, per spatial_analyze)"] = (
+        sum(e.time_range.elapsed_us() for e in nccl_host) / calls / 1000)
+    t["all_reduce device kernels"] = sorted({e.name[:60] for e in nccl_dev})
+    t["all_reduce bytes"] = counts.numel() * 4
+    # where the all-reduce's own time goes: the host calls under it
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            dist.all_reduce(counts, group=group)
+        torch.cuda.synchronize()
+    host: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.name] = host.get(e.name, 0.0) + e.time_range.elapsed_us() / calls / 1000
+    t["all_reduce alone, host ms per call by name"] = [
+        f"{n[:50]} {ms:.4f}" for n, ms in sorted(host.items(), key=lambda kv: -kv[1])[:8]]
+    t["all_reduce alone, device ms per call"] = (
+        sum(e.time_range.elapsed_us() for e in device_events(prof)) / calls / 1000)
+    return t
+
+
+def mesh_reference(device, frames, packed, tms, h, w) -> dict:
+    """The unsharded port on ``device`` for each mesh path: ``ops/fused.analyze``
+    per frame, ``make_batched_step`` without a mesh and the plain overlays."""
+    import torch
+
+    from obs_color_monitor_tpu_torch import make_batched_step
+    from obs_color_monitor_tpu_torch.ops import overlays as ov
+    from obs_color_monitor_tpu_torch.ops.convert import planarize
+    from obs_color_monitor_tpu_torch.ops.fused import analyze
+
+    def stats(f, comp):
+        y = comp == "yuv"
+        res = analyze(f, 2, scale=1, need_vs=True, need_wv_rgb=not y, need_hi_rgb=not y,
+                      need_wv_yuv=y, need_hi_yuv=y)
+        wv, hi = (res.wv_yuv, res.hi_yuv) if y else (res.wv_rgb, res.hi_rgb)
+        return [res.vs_counts, hi.to(torch.uint32), wv]
+
+    per_frame = [stats(f, "rgb") for f in frames]
+    ref = {"mesh batch_analyze B=2": to_host([torch.stack(o) for o in zip(*per_frame)])}
+    ref["mesh batched step B=2"] = to_host(make_batched_step(
+        h, w, scale=2, input_format="packed", device=device)(packed, tms)._asdict())
+    planes = planarize(frames[0])
+    k = MESH_OV
+    for comp in MESH_COMPONENTS:
+        ref[f"mesh spatial_analyze {comp}"] = to_host(stats(frames[0], comp))
+        for tm in CLOCKS:
+            ref[f"mesh spatial_pipeline {comp} tm {tm}"] = to_host(stats(frames[0], comp) + [
+                ov.zebra_planes(planes, k["th_low"], k["th_high"], tm, 2),
+                ov.falsecolor_planes(planes, 2),
+                ov.focus_peaking_planes(planes, k["peak_th"], k["peak_rgba"])])
+    return ref
+
+
+def mesh_halo_pieces(device, frame, n=2, tm=4.0) -> dict:
+    """The overlay half of ``spatial_pipeline`` for each of ``n`` ranks,
+    emulated in one process: K1 on each rank's rows with the clock
+    ``tm + float32(r * H/n)``, then focus peaking's boundary rows corrected
+    by K3 from the neighbours' rows (``mesh.peaking_boundary_rows``).  The
+    blocks put together must equal K1's overlays of the whole frame: the
+    only check on the card of the code that runs when n > 1 (one card)."""
+    import torch
+
+    from obs_color_monitor_tpu_torch.ops.convert import packed_view
+    from obs_color_monitor_tpu_torch.ops.pipeline import frame_pass
+    from obs_color_monitor_tpu_torch.parallel.mesh import peaking_boundary_rows
+
+    kw = dict(packed=True, cs=2, scale=1, with_overlays=True, zb_cs=2, fc_cs=2, **MESH_OV)
+    whole = frame_pass(packed_view(frame), tm, **kw)
+    hb = frame.shape[0] // n
+    parts = []
+    reset_counts()
+    for r in range(n):
+        block = frame[r * hb:(r + 1) * hb].contiguous()
+        clock = (torch.full((), tm, dtype=torch.float32, device=device)
+                 + torch.full((), float(r * hb), dtype=torch.float32, device=device))
+        ds, _, zb, fc, fp = frame_pass(packed_view(block), clock, **kw)
+        above = whole[0][:, r * hb - 1:r * hb] if r > 0 else None
+        below = whole[0][:, (r + 1) * hb:(r + 1) * hb + 1] if r < n - 1 else None
+        parts.append((zb, fc, peaking_boundary_rows(fp, ds, above, below, MESH_OV["peak_th"],
+                                                    MESH_OV["peak_rgba"])))
+    counts = read_counts()
+    for i, name in enumerate(("zebra", "falsecolor", "focuspeaking")):
+        got = torch.cat([p[i] for p in parts], dim=1)
+        if not torch.equal(got, whole[2 + i]):
+            raise AssertionError(f"mesh halo pieces, {n} ranks: {name} differs from the whole "
+                                 "frame's")
+    if device.type == "cuda" and (counts["K1"], counts["K3"]) != (n, 2 * (n - 1)):
+        raise AssertionError(f"mesh halo pieces: {counts}, expected {n} K1 and "
+                             f"{2 * (n - 1)} K3 launches")
+    print(f"mesh halo pieces, {n} ranks emulated: zebra, false colour and focus peaking equal "
+          f"to the whole frame's; launches K1={counts['K1']} K3={counts['K3']}", flush=True)
+    return {"K1": counts["K1"], "K3": counts["K3"], "K3 vec": counts["K3 vec"],
+            "K1 vec": counts["K1 vec"]}
+
+
+def phase_mesh(device, card: str, h=H4K, w=W4K) -> tuple[dict, dict]:
+    """``obs_color_monitor_tpu_torch.parallel`` on one card: a world-size-1
+    NCCL group (``make_mesh``), ``batch_analyze`` on B = 2 4K frames,
+    ``make_batched_step(mesh=)`` at B = 2 packed, ``spatial_analyze`` and
+    ``spatial_pipeline`` on one 4K frame, both component families, the
+    pipeline at tm 1.0 and 4.0; each with one K1 and one K2 launch, every
+    output equal to the same calls on the CPU (a gloo group) and to the
+    unsharded port on the card; the halo pieces for 2 and 4 ranks; then the
+    times.  Returns (counts by path, times)."""
+    outs, counts, times = run_mesh(device, h, w, MESH_B, timing=device.type == "cuda")
+    frames, packed, tms = mesh_inputs(device, h, w)
+    ref = mesh_reference(device, frames, packed, tms, h, w)
+    cpu_outs = outs
+    if device.type == "cuda":
+        cpu_outs, _, _ = run_mesh(__import__("torch").device("cpu"), h, w, MESH_B)
+    for name, got in outs.items():
+        compare_fields(f"{name} vs the unsharded port", got, ref[name])
+        compare_fields(f"{name} vs the CPU", got, cpu_outs[name])
+        print(f"{name}: every output equal to the unsharded port and to the CPU", flush=True)
+    for comp in MESH_COMPONENTS:
+        a, b = (outs[f"mesh spatial_pipeline {comp} tm {tm}"]["3"] for tm in CLOCKS)
+        if np.array_equal(a, b):
+            raise AssertionError(f"mesh spatial_pipeline {comp}: the zebra did not move")
+    for n in (2, 4):
+        counts[f"mesh halo pieces n={n}"] = mesh_halo_pieces(device, frames[0], n)
+    for k, v in times.items():
+        print(f"mesh time {k}: {v if isinstance(v, (list, int)) else f'{v:.4f} ms'}  [{card}]",
+              flush=True)
+    if times:
+        print(f"mesh all_reduce moves {times['all_reduce bytes']} bytes a 4K frame "
+              "(256*256 + 3*256*3840 int32)", flush=True)
+    return counts, times
 
 
 def phase_golden(device, h=270, w=480) -> None:
@@ -1954,7 +2208,7 @@ KERNELS = [  # id, wrapper, source, TPU kernel it replaces, timing key, library 
      None),
     ("K4", "nv12_decode", "nv12_decode.cu", "ops/pallas_convert.py:60", "k4", None),
     ("K5", "nv12_16_decode", "nv12_decode.cu", "ops/pallas_convert.py:88", "k5", None),
-    ("K6", "vs_wv_counts (both kernels, static-rect crop)", "scope_stats.cu",
+    ("K6", "vs_wv_counts (both kernels: a static-rect crop, the mesh paths)", "scope_stats.cu",
      "ops/pallas_stats.py:254", "k6", "k6_library"),
     ("K7", "vs_wv_counts(need_wv=False)", "scope_stats.cu", "ops/pallas_stats.py:156", "k7",
      "k7_library"),
@@ -2080,6 +2334,8 @@ def main() -> int:
                **phase_ingest_path(device), **phase_dynamic_dock(device),
                **phase_stream_dock(device), **phase_captured(device), **phase_batched(device),
                **phase_driver_dock(device), **phase_cli(device)}
+    mesh_counts, _ = phase_mesh(device, card)
+    by_path.update(mesh_counts)
     phase_golden(device)
     t, bounds, dev = phase_timing(device, card)
     phase_profile(device, card)

@@ -27,6 +27,11 @@ Layout:
                 live sink, video sinks, capture targets, profiler probes
   runtime/      the native host runtime (csrc/ocm_runtime.cpp, built by g++
                 at first use) with NumPy fallbacks
+  parallel/     the multi-device layer on torch.distributed: batch
+                data-parallel and row-sharded analysis with an all-reduce
+                merge of the counts and a focus-peaking halo
+  examples/     runnable examples (python -m
+                obs_color_monitor_tpu_torch.examples.<name>)
   registry.py   the source registry; __main__.py the CLI
                 (python -m obs_color_monitor_tpu_torch dock|scope|info)
   utils/        draw, image_io, persistence, i18n (own locale tables)

@@ -264,7 +264,7 @@ def make_full_step(
     return captured(step, device)
 
 
-def make_batched_step(height: int, width: int, mesh=None, *, device="cuda", **kwargs):
+def make_batched_step(height: int, width: int, mesh=None, *, device=None, **kwargs):
     """Multi-stream serving: (frames, tms (B,)) -> ScopeOutputs with a
     leading B on every field (``api.make_batched_step``, JAX's ``vmap`` of
     the step).
@@ -272,17 +272,29 @@ def make_batched_step(height: int, width: int, mesh=None, *, device="cuda", **kw
     ``kwargs`` are :func:`make_full_step`'s.  ``frames`` is a batch in the
     step's input format: (B, H, W, 4) u8 rgba, (B, H, W) packed, (B, 4, H, W)
     planar, or an NV12/P010 pair ((B, H, W), (B, H/2, W)); ``tms`` a (B,)
-    float32 tensor on ``device``, frame b's zebra clock.  K4/K5, K1 and K2
-    each run once for the whole batch (the batch is their grid's frame
-    axis, as ``vmap`` adds a grid axis to a ``pallas_call``); the glue runs
-    frame by frame.  Frame b's outputs equal the full step's on frame b.
-    On a CUDA device the step is captured per B (``graphs.CapturedStep``);
-    ``step.eager`` is the uncaptured step.  ``mesh`` (the JAX batch-sharded
-    route) is not ported yet."""
+    float32 tensor on the step's device, frame b's zebra clock.  K4/K5, K1
+    and K2 each run once for the whole batch (the batch is their grid's
+    frame axis, as ``vmap`` adds a grid axis to a ``pallas_call``); the glue
+    runs frame by frame.  Frame b's outputs equal the full step's on frame
+    b.  On a CUDA device the step is captured per B
+    (``graphs.CapturedStep``); ``step.eager`` is the uncaptured step.
+
+    ``device`` defaults to "cuda".  With a ``mesh`` (``parallel.make_mesh``,
+    batch data-parallel, JAX's batch-sharded step) the step runs on this
+    rank's device (``parallel.mesh_device``; a ``device`` of another type
+    raises) and takes this rank's shard of the global batch
+    (``parallel.shard_batch`` of the frames and of the clocks): B is the
+    local batch, the results stay on the rank, and no collective runs, so
+    the step is captured as without a mesh."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_batched_step(mesh=...): the sharded batch waits for parallel/mesh "
-            "(ROADMAP.md Queue 1, item 4)")
+        from .parallel.mesh import mesh_device
+
+        mesh_dev = mesh_device(mesh)
+        if device is not None and torch.device(device).type != mesh_dev.type:
+            raise ValueError(f"make_batched_step: device {device} but a {mesh_dev.type} mesh")
+        device = mesh_dev
+    elif device is None:
+        device = "cuda"
     from .graphs import captured
 
     input_format = kwargs.get("input_format", "rgba")

@@ -104,6 +104,12 @@ def rgb_to_yuv_planes(planes: torch.Tensor, cs: int) -> torch.Tensor:
     return torch.stack(outs, dim=-3)
 
 
+def rgb_to_yuv_u8(rgba: torch.Tensor, cs: int) -> torch.Tensor:
+    """Interleaved wrapper: (..., H, W, 4) u8 -> (..., H, W, 3) u8 Y, U, V
+    (``convert.rgb_to_yuv_u8``)."""
+    return interleave(rgb_to_yuv_planes(planarize(rgba), cs)).contiguous()
+
+
 def luma_coef_fixed(cs: int) -> tuple[int, int, int]:
     """Q12 luma coefficients ``round(coef * 2^12)`` for ``cs``."""
     return tuple(int(round(c * (1 << FIXED_SHIFT))) for c in LUMA_COEF[Colorspace(cs)])
@@ -115,6 +121,12 @@ def luma_planes(planes: torch.Tensor, cs: int) -> torch.Tensor:
     kr, kg, kb = luma_coef_fixed(cs)
     r, g, b = _rgb_i32(planes)
     return kr * r + kg * g + kb * b
+
+
+def luma_fixed(rgba: torch.Tensor, cs: int) -> torch.Tensor:
+    """Interleaved wrapper of :func:`luma_planes`: (..., H, W, 4) u8 ->
+    (..., H, W) int32 (``convert.luma_fixed``, float32 there)."""
+    return luma_planes(planarize(rgba), cs)
 
 
 def downscale_planes(planes: torch.Tensor, scale: int) -> torch.Tensor:
@@ -145,9 +157,22 @@ def downscale_planes(planes: torch.Tensor, scale: int) -> torch.Tensor:
     return ((s + 2) >> 2).to(torch.uint8)
 
 
+def downscale(rgba: torch.Tensor, scale: int) -> torch.Tensor:
+    """Interleaved wrapper of :func:`downscale_planes` (``convert.downscale``);
+    scale <= 1 returns the frame as it is."""
+    if scale <= 1:
+        return rgba
+    return interleave(downscale_planes(planarize(rgba), scale)).contiguous()
+
+
 def roi_crop_planes(planes: torch.Tensor, x0: int, y0: int, x1: int, y1: int) -> torch.Tensor:
     """Static ROI sub-rect on planes (``convert.roi_crop_planes``)."""
     return planes[..., y0:y1, x0:x1]
+
+
+def roi_crop(rgba: torch.Tensor, x0: int, y0: int, x1: int, y1: int) -> torch.Tensor:
+    """Static ROI sub-rect, interleaved (``convert.roi_crop``)."""
+    return rgba[..., y0:y1, x0:x1, :]
 
 
 def clamp_rect(rect, w: int, h: int, device=None) -> torch.Tensor:

@@ -26,7 +26,7 @@ import numpy as np
 
 from ..colorspace import Colorspace, rgb2uv_int
 from ..config import ShowKey
-from ..utils.draw import OverlayCanvas
+from ..utils.draw import OverlayCanvas, alpha_blend_u8
 from ..golden.reference import falsecolor as golden_falsecolor
 
 VS_SIZE = 256
@@ -301,3 +301,31 @@ def falsecolor_key_overlay(
             y = int(yk * height) + int(0.02 * height) + 2
         canvas.text(label, x, y, (255, 255, 255, 255))
     return canvas.rgba
+
+
+def histogram_step_choices(val_min: float, val_max: float) -> list[float]:
+    """The 1/2/5-sequence choices for the histogram's horizontal graticule
+    step combo (reference graticule_horizontal_combo_init,
+    src/histogram.c:196-215).  -1.0 means None."""
+    out = [-1.0]
+    div = 1.0
+    while val_min * div < 1.0:
+        div *= 10.0
+    ten = 1.0
+    while ten / div <= val_max:
+        for f in (1.0, 2.0, 5.0):
+            v = f * ten / div
+            if v < val_min:
+                continue
+            if v > val_max:
+                break
+            out.append(v)
+        ten *= 10.0
+    return out
+
+
+def composite_overlay(image: np.ndarray, overlay: np.ndarray | None) -> np.ndarray:
+    """Golden-side composite; the device side uses ops.render.blend_overlay."""
+    if overlay is None:
+        return image
+    return alpha_blend_u8(image, overlay)

@@ -21,7 +21,7 @@ from ..golden.reference import (
     falsecolor_band_colors_u8,
     luma_threshold_fixed,
 )
-from .convert import clamp_rect, luma_planes
+from .convert import clamp_rect, interleave, luma_planes, planarize
 
 BAND_COLORS = falsecolor_band_colors_u8()  # (12, 4) u8
 BAND_THRESH = tuple(luma_threshold_fixed(t) for t, _ in FALSECOLOR_BANDS[:-1])  # (11,)
@@ -134,3 +134,24 @@ def focus_peaking_planes(
     color = [int(c) for c in np.asarray(peaking_color_u8, np.uint8)]
     return torch.stack([torch.where(peak, color[c], planes[..., c, :, :]) for c in range(4)],
                        dim=-3)
+
+
+# Interleaved wrappers: (H, W, 4) u8 in and out, as the JAX module's
+# boundary forms (``overlays.py:55, 93, 128, 192``).
+
+
+def zebra(rgba: torch.Tensor, th_low: float, th_high: float, tm, cs: int) -> torch.Tensor:
+    return interleave(zebra_planes(planarize(rgba), th_low, th_high, tm, cs)).contiguous()
+
+
+def falsecolor(rgba: torch.Tensor, cs: int) -> torch.Tensor:
+    return interleave(falsecolor_planes(planarize(rgba), cs)).contiguous()
+
+
+def falsecolor_lut(rgba: torch.Tensor, lut, cs: int, lut_n: int) -> torch.Tensor:
+    return interleave(falsecolor_lut_planes(planarize(rgba), lut, cs, lut_n)).contiguous()
+
+
+def focus_peaking(rgba: torch.Tensor, th_fixed: int, peaking_color_u8) -> torch.Tensor:
+    return interleave(focus_peaking_planes(planarize(rgba), th_fixed,
+                                           peaking_color_u8)).contiguous()

@@ -115,7 +115,11 @@ def render_histogram(
     lv = _reorder(levels, yuv_mode).to(torch.float32)
     hm = _reorder(hi_max, yuv_mode).to(torch.float32)
     rows = torch.arange(H, dtype=torch.float32, device=levels.device)
-    thr = (1.0 - (rows + 0.5) / float(H))[:, None]  # (H, 1)
+    # a tensor divisor: divided by a host scalar, CUDA multiplies by its
+    # rounded reciprocal, which differs from the true quotient by an ulp at
+    # some rows and flips the fill at exact ties (count * 2H == (2H - 2 row
+    # - 1) * hi_max); the CPU divides, as golden does
+    thr = (1.0 - (rows + 0.5) / torch.full_like(rows, float(H)))[:, None]  # (H, 1)
     fill = lv[:, None, :] >= thr[None] * hm[:, None, None]  # (3, H, 256)
     zero = torch.zeros((), dtype=torch.int32, device=levels.device)
     if n_components <= 1 or DisplayMode(display) == DisplayMode.OVERLAY:

@@ -59,6 +59,27 @@ def waveform_counts_i32(planes: torch.Tensor, mask: torch.Tensor | None) -> torc
     return torch.stack(out)
 
 
+def vectorscope_counts(yuv_planes: torch.Tensor) -> torch.Tensor:
+    """(3, H, W) Y, U, V planes -> (256, 256) u8 saturating counts[v, u],
+    every pixel counted (``stats.vectorscope_counts``): K2's vectorscope
+    alone (K7's mode) on a card, its plain version on the CPU."""
+    from .scope_stats import vs_wv_counts
+
+    u, v = yuv_planes[1].contiguous(), yuv_planes[2].contiguous()
+    return saturate_u8(vs_wv_counts(u, v, None, None, need_wv=False)[0])
+
+
+def waveform_counts(planes: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """(3, H, W) u8 planes -> (3, 256, W) u8 saturating per-column counts,
+    pixels whose ``mask`` is 0 skipped (``stats.waveform_counts``): K2's
+    waveform alone (K8's mode) on a card, its plain version on the CPU."""
+    from .scope_stats import vs_wv_counts
+
+    if mask is not None:
+        mask = mask.contiguous()
+    return saturate_u8(vs_wv_counts(None, None, planes.contiguous(), mask, need_vs=False)[1])
+
+
 def histogram_counts(planes: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     """(3, H, W) u8 planes -> (3, 256) int32 counts, mask-0 pixels skipped.
     The JAX function returns uint32 (``stats.histogram_counts``); torch's

@@ -149,8 +149,28 @@ def test_batched_user_lut_false_colour():
 
 
 def test_mesh_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        make_batched_step(32, 48, mesh=object(), device="cpu")
+    # The name dates from when make_batched_step(mesh=) was refused with its
+    # ROADMAP item; it no longer describes the test.  The test now checks
+    # that a mesh builds the step on the mesh's device, equal to the step
+    # without one (tests/test_torch_parallel.py holds it to JAX's sharded
+    # step on 1, 2 and 4 ranks), and that a device of another type raises.
+    import torch.distributed as dist
+
+    from obs_color_monitor_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    try:
+        with pytest.raises(ValueError):
+            make_batched_step(32, 48, mesh=mesh, device="cuda")
+        frames = _frames(32, 48, "rgba", 8, n=2)
+        x = frame_from_numpy(_stacked(frames, "rgba"), "rgba", "cpu")
+        tms = torch.tensor(TMS[:2], dtype=torch.float32)
+        got = make_batched_step(32, 48, mesh=mesh)(x, tms).to_numpy()
+        want = make_batched_step(32, 48, device="cpu")(x, tms).to_numpy()
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k
+    finally:
+        dist.destroy_process_group()
 
 
 def test_batched_step_argument_checks():

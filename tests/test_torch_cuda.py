@@ -703,3 +703,134 @@ def test_cli_pipelined_readback(cuda, monkeypatch, tmp_path):
     for i, b in enumerate(bufs):
         dock.push_nv12(b[:48], b[48:])
         assert np.array_equal(published[i], dock.render(width=64, height=360)), i
+
+
+@pytest.fixture
+def nccl_meshes(cuda):
+    """(batch mesh, rows mesh) over a world-size-1 NCCL group that
+    ``make_mesh`` starts, destroyed after the test."""
+    import torch.distributed as dist
+
+    from obs_color_monitor_tpu_torch import parallel as par
+
+    assert not dist.is_initialized()
+    mb = par.make_mesh(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        yield mb, par.make_mesh(axis=par.SPATIAL_AXIS, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("h,w", [(67, 130), (128, 256)])
+@pytest.mark.parametrize("comp", ["rgb", "yuv"])
+def test_mesh_world_size_one_on_the_card(nccl_meshes, h, w, comp):
+    """batch_analyze, spatial_analyze, spatial_pipeline and
+    make_batched_step(mesh=) under NCCL equal the unsharded port on the CPU,
+    with one K1 and one K2 launch each."""
+    from obs_color_monitor_tpu_torch import make_batched_step
+    from obs_color_monitor_tpu_torch import parallel as par
+    from obs_color_monitor_tpu_torch.ops import overlays as ov
+    from obs_color_monitor_tpu_torch.ops.fused import analyze
+
+    mb, mr = nccl_meshes
+    frames = np.stack([_frame(h, w, 40 + i) for i in range(2)])
+    frames[0, ::5, :, :3] = 255
+    y = comp == "yuv"
+
+    def stats(f):
+        res = analyze(torch.from_numpy(f), 2, scale=1, need_vs=True, need_wv_rgb=not y,
+                      need_hi_rgb=not y, need_wv_yuv=y, need_hi_yuv=y)
+        wv, hi = (res.wv_yuv, res.hi_yuv) if y else (res.wv_rgb, res.hi_rgb)
+        return [res.vs_counts, hi.to(torch.uint32), wv]
+
+    k1, k2 = tp.frame_pass.launches, ss.vs_wv_counts.launches
+    got = par.batch_analyze(frames, mb, cs=2, components=comp)
+    assert (tp.frame_pass.launches - k1, ss.vs_wv_counts.launches - k2) == (1, 1)
+    for b in range(2):
+        for g, r in zip(got, stats(frames[b])):
+            assert torch.equal(g[b].cpu(), r)
+    planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(frames[0], -1, 0)))
+    want = stats(frames[0])
+    assert all(torch.equal(g.cpu(), r) for g, r in
+               zip(par.spatial_analyze(frames[0], mr, cs=2, components=comp), want))
+    for tm in (1.0, 4.0):
+        out = par.spatial_pipeline(frames[0], mr, cs=2, tm=tm, components=comp, **ARGS)
+        want_ov = [ov.zebra_planes(planes, 0.75, 1.0, tm, 2), ov.falsecolor_planes(planes, 1),
+                   ov.focus_peaking_planes(planes, 3062, (255, 84, 0, 255))]
+        for g, r in zip(out, want + want_ov):
+            assert torch.equal(g.cpu(), r)
+    step = make_batched_step(h, w, mesh=mb, scale=2, input_format="rgba")
+    assert step.device == cuda_device(mb)
+    tms = torch.tensor([0.5, 2.5], device=cuda_device(mb))
+    got = step(torch.from_numpy(frames).to(cuda_device(mb)), tms).to_numpy()
+    want = make_batched_step(h, w, scale=2, input_format="rgba", device="cpu")(
+        torch.from_numpy(frames), tms.cpu()).to_numpy()
+    for key in want:
+        assert np.array_equal(got[key], want[key]), key
+
+
+def cuda_device(mesh):
+    from obs_color_monitor_tpu_torch.parallel import mesh_device
+
+    return mesh_device(mesh)
+
+
+def test_mesh_refuses_a_cpu_mesh_on_an_nccl_group(nccl_meshes):
+    from obs_color_monitor_tpu_torch import parallel as par
+
+    with pytest.raises(ValueError):
+        par.make_mesh(device="cpu")
+
+
+@pytest.mark.parametrize("h,w,cuts", [(67, 130, (33,)), (64, 144, (16, 32, 48)),
+                                      (9, 17, (1, 2, 8)), (130, 256, (65,))])
+def test_mesh_halo_pieces_on_the_card(cuda, h, w, cuts):
+    """spatial_pipeline's per-rank overlay pieces, for row blocks cut at
+    ``cuts``: K1 on each block with its offset clock, focus peaking's
+    boundary rows corrected by K3 from the neighbours' rows, equal to the
+    whole frame's overlays; the code that runs only at more than one rank."""
+    from obs_color_monitor_tpu_torch.ops.convert import packed_view
+    from obs_color_monitor_tpu_torch.parallel.mesh import peaking_boundary_rows
+
+    f = _frame(h, w, h + w)
+    f[::4, :, :3] = 255
+    x = torch.from_numpy(f).to(cuda)
+    kw = dict(packed=True, cs=2, scale=1, with_overlays=True, **ARGS)
+    tm = 1000.37
+    whole = tp.frame_pass(packed_view(x), tm, **kw)
+    edges = (0, *cuts, h)
+    parts = []
+    k3 = fo.fused_overlays_planes.launches
+    for a, b in zip(edges[:-1], edges[1:]):
+        clock = (torch.full((), tm, dtype=torch.float32, device=cuda)
+                 + torch.full((), float(a), dtype=torch.float32, device=cuda))
+        ds, _, zb, fc, fp = tp.frame_pass(packed_view(x[a:b].contiguous()), clock, **kw)
+        above = whole[0][:, a - 1:a] if a else None
+        below = whole[0][:, b:b + 1] if b < h else None
+        parts.append((zb, fc, peaking_boundary_rows(fp, ds, above, below, ARGS["peak_th"],
+                                                    ARGS["peak_rgba"])))
+    assert fo.fused_overlays_planes.launches > k3
+    for i in range(3):
+        assert torch.equal(torch.cat([p[i] for p in parts], dim=1), whole[2 + i])
+
+
+def test_histogram_render_ties_on_the_card(cuda):
+    """Every level an exact tie of the fill test (count * 2H == (2H - 2 row
+    - 1) * hi_max): the card's render equals the CPU's and golden's (a
+    host-scalar divisor made CUDA multiply by a rounded reciprocal)."""
+    from obs_color_monitor_tpu_torch.golden import render as golden_render
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    H, hi = 200, 400
+    counts = np.zeros((3, 256), np.float32)
+    counts[:, :200] = 2 * H - 2 * np.arange(200) - 1  # row r ties at level 2H - 2r - 1
+    hm = np.full(3, hi, np.float32)
+    for display, n in ((0, 3), (1, 3), (2, 3), (0, 1)):
+        got = rd.render_histogram(torch.from_numpy(counts).to(cuda), torch.from_numpy(hm).to(cuda),
+                                  H, display, n, False).cpu()
+        cpu = rd.render_histogram(torch.from_numpy(counts), torch.from_numpy(hm), H, display, n,
+                                  False)
+        assert torch.equal(got, cpu)
+        assert np.array_equal(got.numpy(), golden_render.render_histogram(
+            counts, hm, H, display, n, False))

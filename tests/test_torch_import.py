@@ -1,6 +1,6 @@
-"""The torch port, its model layer, host pipeline, registry and CLI
-included, imports no JAX, nothing of the JAX package, and builds no kernel
-on the CPU path."""
+"""The torch port, its model layer, host pipeline, registry, CLI, mesh
+(``parallel``) and examples included, imports no JAX, nothing of the JAX
+package, and builds no kernel on the CPU path."""
 
 import os
 import subprocess
@@ -60,6 +60,14 @@ try:
 finally:
     drv.stop()
 assert drv.stats["processed"] == 2 and drv.stats["errors"] == 0
+import importlib
+import obs_color_monitor_tpu_torch.parallel as par
+mesh = par.make_mesh(axis=par.SPATIAL_AXIS, device="cpu")
+assert par.spatial_pipeline(rgba, mesh, cs=2, tm=1.0)[5].shape == (4, 24, 40)
+assert par.batch_analyze(rgba[None], par.make_mesh(device="cpu"), cs=2)[0].shape == (1, 256, 256)
+for name in ("multistream_serving", "multihost_distributed", "driver_pipeline",
+             "interactive_roi_drag", "p010_wire_ingest"):
+    importlib.import_module("obs_color_monitor_tpu_torch.examples." + name)
 bad = sorted(m for m in sys.modules if m in ("jax", "obs_color_monitor_tpu")
              or m.startswith(("jax.", "jaxlib", "triton", "obs_color_monitor_tpu.")))
 print("LOADED", bad)

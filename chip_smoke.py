@@ -48,7 +48,10 @@ any failure raises and the exit code is non-zero:
    static and dynamic dock steps, the settled Dock) at tm = 1.0 and 4.0,
    each replay equal to ``step.eager`` and to the CPU, the zebra differing
    between the clocks and an earlier result unchanged by a later call; the
-   batched step (``make_batched_step``) at B = 2 and 4 on 4K packed, B = 4
+   overlay scopes' filter flavour ``apply(frame)`` on an interleaved 4K
+   frame (Zebra, FalseColor plain, with a LUT and with its key beside the
+   image, FocusPeaking at two thresholds) equal to the CPU, K3 once a call
+   but for the LUT; the batched step (``make_batched_step``) at B = 2 and 4 on 4K packed, B = 4
    on 1080p and B = 2 on 4K NV12 frames, each frame equal to the eager
    full step, one frame to the CPU, with one K1, K2 and K4 launch per
    batch; one 270x480 frame against the golden model.  The steps run as
@@ -59,16 +62,19 @@ any failure raises and the exit code is non-zero:
    counts), and the streaming Dock must launch K3 exactly once per frame,
    settled or moving; then the mesh layer (``obs_color_monitor_tpu_torch.
    parallel``) under a world-size-1 NCCL group that ``make_mesh`` starts
-   (destroyed after): ``batch_analyze`` on B = 2 4K frames,
-   ``make_batched_step(mesh=)`` at B = 2 packed, ``spatial_analyze`` and
-   ``spatial_pipeline`` (at tm 1.0 and 4.0) on one 4K frame in both
-   component families, each with one K1 and one K2 launch and every output
-   equal to the same calls under a gloo group on the CPU and to the
-   unsharded port (``ops/fused.analyze``, the batched step without a mesh,
-   the plain overlays); the overlay pieces of 2 and 4 ranks emulated in
-   one process (K1 per block with its clock, K3 on the halo rows) equal to
-   the whole frame's; the paths' times by CUDA events and the all-reduce's
-   (12,058,624 bytes of int32 counts a 4K frame) by events and profiler;
+   (destroyed after), each path a replay of its captured step (one graph
+   per step, the all-reduce inside): ``batch_analyze`` on B = 2 4K frames
+   in two orders, ``make_batched_step(mesh=)`` at B = 2 packed,
+   ``spatial_analyze`` on two 4K frames and ``spatial_pipeline`` on two
+   frames at tm 1.0 and 4.0, in both component families, each with one K1
+   and one K2 launch and no K3, every output equal to its step's eager body,
+   to the same calls under a gloo group on the CPU and to the unsharded port
+   (``ops/fused.analyze``, the batched step without a mesh, the plain
+   overlays); the overlay pieces of 2 and 4 ranks emulated in one process
+   (K1 per block with its clock, K3 on the halo rows) equal to the whole
+   frame's; each path's replay and eager times by CUDA events and the
+   device busy share of each (torch.profiler), the unsharded analysis and
+   the all-reduce alone (12,058,624 bytes of int32 counts a 4K frame);
 5. timing with CUDA events (warm-up, then the median of 25 runs of 10
    back-to-back calls): each step eagerly (``step.eager``) and as its
    graph replay (input copies and output copies included), per frame: the
@@ -916,6 +922,57 @@ def phase_captured(device, h=H4K, w=W4K, roi=ROI) -> dict:
     return by_path
 
 
+def phase_scope_apply(device, h=H4K, w=W4K) -> dict:
+    """The overlay scopes' filter flavour, ``apply(frame)``, on one
+    interleaved 4K frame: Zebra after a tick, FalseColor plain, with a
+    user LUT and with its key beside the image (a larger canvas), and
+    FocusPeaking at two thresholds; each on the card equal to the same
+    scope on the CPU, the K3 route (all but the LUT) launching K3 once a
+    call.  Returns the counts by path."""
+    import torch
+
+    from obs_color_monitor_tpu_torch import FalseColorConfig, FocusPeakingConfig, ShowKey
+    from obs_color_monitor_tpu_torch.models import FalseColor, FocusPeaking, Zebra
+
+    f = make_frame(h, w, "random", 4000)
+    f[h // 3: h // 2, :, :3] = np.maximum(f[h // 3: h // 2, :, :3], 215)  # the zebra's window
+    x = torch.from_numpy(f).to(device)
+    lut = np.random.default_rng(4001).integers(0, 256, (33, 4), np.uint8)
+    cases = (
+        ("Zebra", lambda d: Zebra(device=d)),
+        ("FalseColor", lambda d: FalseColor(device=d)),
+        ("FalseColor LUT", lambda d: FalseColor(FalseColorConfig(use_lut=True, lut=lut),
+                                                device=d)),
+        ("FalseColor key outside", lambda d: FalseColor(
+            FalseColorConfig(show_key=ShowKey.OUTSIDE), device=d)),
+        ("FocusPeaking 0.05", lambda d: FocusPeaking(device=d)),
+        ("FocusPeaking 0.012", lambda d: FocusPeaking(
+            FocusPeakingConfig(peaking_threshold=0.012), device=d)),
+    )
+    by_path = {}
+    for name, make in cases:
+        card, host = make(device), make("cpu")
+        if isinstance(card, Zebra):
+            card.tick(0.5)
+            host.tick(0.5)
+        k3 = 0 if name.endswith("LUT") else 1
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        reset_counts()
+        got = card.apply(x)
+        counts = path_counts(f"scope apply {name}", read_counts(), ("K3",) * k3, device)
+        if device.type == "cuda" and counts["K3"] != k3:
+            raise AssertionError(f"scope apply {name}: {counts}, expected {k3} K3 launch")
+        want = host.apply(f)
+        if got.shape != want.shape or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"scope apply {name}: the card's frame differs from the CPU's")
+        if torch.equal(want, torch.from_numpy(f)):
+            raise AssertionError(f"scope apply {name}: the overlay changed nothing")
+        print(f"scope apply {name}: {tuple(got.shape)} equal to the CPU", flush=True)
+        by_path[f"scope apply {name}"] = counts
+    return by_path
+
+
 BATCH_CASES = (  # name, h, w, input format, B
     ("batched packed 4K B=2", H4K, W4K, "packed", 2),
     ("batched packed 4K B=4", H4K, W4K, "packed", 4),
@@ -989,32 +1046,54 @@ def phase_batched(device, cases=BATCH_CASES) -> dict:
 MESH_B = 2  # the mesh phase's batch
 MESH_OV = dict(th_low=0.75, th_high=1.0, peak_th=3062, peak_rgba=(255, 84, 0, 255))
 MESH_COMPONENTS = ("rgb", "yuv")
+MESH_PIPE_CALLS = ((0, 1.0), (0, 4.0), (1, 1.0), (1, 4.0))  # (frame, tm) of the pipeline
 
 
 def mesh_inputs(device, h=H4K, w=W4K, b=MESH_B):
     """(the (b, h, w, 4) frames, the packed batch and its clocks) of the
-    mesh phase on ``device``; frame 0 is the spatial paths' frame."""
+    mesh phase on ``device``; frames 0 and 1 are the spatial paths' frames,
+    and the batch paths also take the batch in reverse order."""
     import torch
 
     host = np.stack([make_frame(h, w, "random", 3000 + i) for i in range(b)])
     host[0, ::270, :, :3] = 255  # bright rows, some on the split rows of 2, 4 and 8 ranks
+    host[1, 5::97, :, :3] = 250
     _, packed, tms = batch_input(h, w, "packed", b, 3100, device)
     return torch.from_numpy(host).to(device), packed, tms
 
 
-def mesh_calls(par, mb, mr, frames, packed, tms, step) -> dict:
-    """The mesh phase's calls, by path name: each returns its outputs."""
-    calls = {
-        "mesh batch_analyze B=2": lambda: par.batch_analyze(frames, mb, cs=2),
-        "mesh batched step B=2": lambda: step(packed, tms)._asdict(),
-    }
+def mesh_steps(pm, mb, mr) -> dict:
+    """The cached device step of each mesh path the phase calls, by name."""
+    steps = {"batch_analyze": pm._mesh_step("batch_analyze", mb, cs=2)}
     for comp in MESH_COMPONENTS:
-        calls[f"mesh spatial_analyze {comp}"] = (
-            lambda comp=comp: par.spatial_analyze(frames[0], mr, cs=2, components=comp))
-        for tm in CLOCKS:
-            calls[f"mesh spatial_pipeline {comp} tm {tm}"] = (
-                lambda comp=comp, tm=tm: par.spatial_pipeline(
-                    frames[0], mr, cs=2, tm=tm, components=comp, **MESH_OV))
+        steps[f"spatial_analyze {comp}"] = pm._mesh_step("spatial_analyze", mr, cs=2,
+                                                         components=comp)
+        steps[f"spatial_pipeline {comp}"] = pm._mesh_step("spatial_pipeline", mr, cs=2,
+                                                          components=comp, **MESH_OV)
+    return steps
+
+
+def mesh_calls(par, mb, mr, steps, frames, packed, tms, step) -> dict:
+    """The mesh phase's calls, by path name: {name: (the call, the same
+    call on its step's eager body)}; each returns its outputs."""
+    calls = {}
+    for i, x in enumerate((frames, frames.flip(0))):
+        calls[f"mesh batch_analyze B=2 batch {i}"] = (
+            lambda x=x: par.batch_analyze(x, mb, cs=2),
+            lambda x=x: steps["batch_analyze"].eager(x))
+    calls["mesh batched step B=2"] = (lambda: step(packed, tms)._asdict(),
+                                      lambda: step.eager(packed, tms)._asdict())
+    for comp in MESH_COMPONENTS:
+        sa, sp = steps[f"spatial_analyze {comp}"], steps[f"spatial_pipeline {comp}"]
+        for i in range(2):
+            calls[f"mesh spatial_analyze {comp} frame {i}"] = (
+                lambda comp=comp, i=i: par.spatial_analyze(frames[i], mr, cs=2, components=comp),
+                lambda sa=sa, i=i: sa.eager(frames[i]))
+        for i, tm in MESH_PIPE_CALLS:
+            calls[f"mesh spatial_pipeline {comp} frame {i} tm {tm}"] = (
+                lambda comp=comp, i=i, tm=tm: par.spatial_pipeline(
+                    frames[i], mr, cs=2, tm=tm, components=comp, **MESH_OV),
+                lambda sp=sp, i=i, tm=tm: sp.eager(frames[i], tm))
     return calls
 
 
@@ -1024,17 +1103,21 @@ def to_host(out) -> dict:
     return {str(k): v.cpu().numpy() for k, v in items if v is not None}
 
 
-def run_mesh(device, h, w, b, timing: bool = False):
+def run_mesh(device, h, w, b, timing: bool = False, card: str = ""):
     """Every mesh call on ``device`` over a fresh world-size-1 group (NCCL
     on a card, gloo on the CPU, started by ``make_mesh``), each with its
-    launch counts read around it alone; with ``timing``, their times.  The
-    group is destroyed before returning.  Returns (outputs by path, counts
-    by path, times)."""
+    launch counts read around it alone.  On a card each path's call is a
+    replay of its cached step's graph (the first call captures it): each
+    must launch one K1, one K2 and no K3, equal its step's eager body on
+    the same inputs, and each step must hold one graph at the end.  With
+    ``timing``, the times.  The group is destroyed before returning.
+    Returns (outputs by path, counts by path, times)."""
     import torch
     import torch.distributed as dist
 
     from obs_color_monitor_tpu_torch import make_batched_step
     from obs_color_monitor_tpu_torch import parallel as par
+    from obs_color_monitor_tpu_torch.parallel import mesh as pm
 
     if dist.is_initialized():
         raise AssertionError("a process group is already initialized")
@@ -1047,76 +1130,96 @@ def run_mesh(device, h, w, b, timing: bool = False):
         dev = par.mesh_device(mb)
         frames, packed, tms = mesh_inputs(dev, h, w, b)
         step = make_batched_step(h, w, mesh=mb, scale=2, input_format="packed")
+        steps = mesh_steps(pm, mb, mr)
         outs, counts = {}, {}
-        for name, call in mesh_calls(par, mb, mr, frames, packed, tms, step).items():
+        for name, (call, eager) in mesh_calls(
+                par, mb, mr, steps, frames, packed, tms, step).items():
             if device.type == "cuda":
                 torch.cuda.synchronize()
             reset_counts()
             out = call()
             counts[name] = path_counts(name, read_counts(), ("K1", "K6"), device, both_as="K6")
             outs[name] = to_host(out)
-            if device.type == "cuda" and (counts[name]["K1"], counts[name]["K6"]) != (1, 1):
-                raise AssertionError(f"{name}: {counts[name]}, expected one K1 and one K2 launch")
-        times = mesh_times(par, mb, mr, frames, packed, tms, step, w) if timing else {}
+            if device.type != "cuda":
+                continue
+            if (counts[name]["K1"], counts[name]["K6"], counts[name]["K3"]) != (1, 1, 0):
+                raise AssertionError(f"{name}: {counts[name]}, expected one K1 and one K2 "
+                                     "launch and no K3")
+            compare_fields(f"{name}: the replay vs its eager body", outs[name], to_host(eager()))
+        if device.type == "cuda":
+            graphs = {k: s.graphs for k, s in {**steps, "batched step": step}.items()}
+            print(f"mesh graphs held per step: {graphs}  [{card}]", flush=True)
+            if set(graphs.values()) != {1}:
+                raise AssertionError(f"mesh steps: {graphs} graphs, expected one each")
+        times = (mesh_times(par, mb, mr, steps, frames, packed, tms, step, card)
+                 if timing else {})
     finally:
         dist.destroy_process_group()
     return outs, counts, times
 
 
-def mesh_times(par, mb, mr, frames, packed, tms, step, w) -> dict:
-    """ms per frame of each mesh path (CUDA events, as ``time_ms``), the
-    unsharded analysis beside them, the all-reduce alone, and the
-    all-reduce's device time in a profile of ``spatial_analyze``."""
+def mesh_busy(fns: dict, calls: int = 10) -> dict:
+    """{name: (device busy ms, host window ms)} per call of each function
+    under torch.profiler (the device's activity only, so that the host's
+    own tracing does not stretch the window) over ``calls`` calls: the
+    union of its device intervals (kernels, copies) against the wall time
+    of the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for k, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t0) * 1000 / calls
+        out[k] = (busy_ms(device_events(prof)) / calls, window)
+    return out
+
+
+def mesh_times(par, mb, mr, steps, frames, packed, tms, step, card: str) -> dict:
+    """ms per frame of each mesh path (CUDA events, as ``time_ms``), replayed
+    (the public call) and as its step's eager body, the batched step with a
+    mesh, the unsharded analysis and the all-reduce alone; then the device
+    busy share of each replay and each eager body (torch.profiler)."""
     import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
     from obs_color_monitor_tpu_torch.ops.fused import analyze
 
+    w = frames.shape[2]
     counts = torch.zeros(256 * 256 + 3 * 256 * w, dtype=torch.int32, device=frames.device)
-    group = mr.get_group()
-    fns = {
-        "mesh batch_analyze B=2": lambda: par.batch_analyze(frames, mb, cs=2),
-        "mesh batched step B=2": lambda: step(packed, tms),
-        "mesh spatial_analyze": lambda: par.spatial_analyze(frames[0], mr, cs=2),
-        "mesh spatial_pipeline": lambda: par.spatial_pipeline(frames[0], mr, cs=2, tm=1.0,
-                                                              **MESH_OV),
-        "unsharded analyze (K1 + K2, no collective)": lambda: analyze(
-            frames[0], 2, scale=1, need_vs=True, need_wv_rgb=True, need_hi_rgb=True),
-        "all_reduce of the 4K counts": lambda: dist.all_reduce(counts, group=group),
+    pipe = steps["spatial_pipeline rgb"]
+    paths = {
+        "batch_analyze B=2": (lambda: par.batch_analyze(frames, mb, cs=2),
+                              lambda: steps["batch_analyze"].eager(frames)),
+        "spatial_analyze": (lambda: par.spatial_analyze(frames[0], mr, cs=2),
+                            lambda: steps["spatial_analyze rgb"].eager(frames[0])),
+        "spatial_pipeline": (lambda: par.spatial_pipeline(frames[0], mr, cs=2, tm=1.0, **MESH_OV),
+                             lambda: pipe.eager(frames[0], 1.0)),
     }
-    per_frame = {"mesh batch_analyze B=2": MESH_B, "mesh batched step B=2": MESH_B}
+    fns = {}
+    for k, (replay, eager) in paths.items():
+        fns[f"mesh {k} replay"] = replay
+        fns[f"mesh {k} eager"] = eager
+    fns["mesh batched step B=2 replay"] = lambda: step(packed, tms)
+    fns["unsharded analyze (K1 + K2, no collective) eager"] = lambda: analyze(
+        frames[0], 2, scale=1, need_vs=True, need_wv_rgb=True, need_hi_rgb=True)
+    fns["all_reduce of the 4K counts alone"] = lambda: dist.all_reduce(counts,
+                                                                      group=mr.get_group())
+    per_frame = lambda k: MESH_B if "B=2" in k else 1
     t = time_ms(fns, reps=10, inner=5)
-    t = {k: v / per_frame.get(k, 1) for k, v in t.items()}
-    calls = 10
-    par.spatial_analyze(frames[0], mr, cs=2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            par.spatial_analyze(frames[0], mr, cs=2)
-        torch.cuda.synchronize()
-    nccl_dev = [e for e in device_events(prof) if "nccl" in e.name.lower()]
-    nccl_host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
-                 and "all_reduce" in e.name]
-    t["all_reduce device ms (profiler, per spatial_analyze)"] = (
-        sum(e.time_range.elapsed_us() for e in nccl_dev) / calls / 1000)
-    t["all_reduce host ms (profiler, per spatial_analyze)"] = (
-        sum(e.time_range.elapsed_us() for e in nccl_host) / calls / 1000)
-    t["all_reduce device kernels"] = sorted({e.name[:60] for e in nccl_dev})
+    t = {k: v / per_frame(k) for k, v in t.items()}
+    for k, (busy, window) in mesh_busy({k: v for k, v in fns.items() if "mesh" in k}).items():
+        t[f"{k} busy"] = busy / per_frame(k)
+        t[f"{k} window"] = window / per_frame(k)
+        t[f"{k} busy share"] = busy / window
+        t[f"{k} busy / events"] = t[f"{k} busy"] / t[k]
     t["all_reduce bytes"] = counts.numel() * 4
-    # where the all-reduce's own time goes: the host calls under it
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            dist.all_reduce(counts, group=group)
-        torch.cuda.synchronize()
-    host: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU:
-            host[e.name] = host.get(e.name, 0.0) + e.time_range.elapsed_us() / calls / 1000
-    t["all_reduce alone, host ms per call by name"] = [
-        f"{n[:50]} {ms:.4f}" for n, ms in sorted(host.items(), key=lambda kv: -kv[1])[:8]]
-    t["all_reduce alone, device ms per call"] = (
-        sum(e.time_range.elapsed_us() for e in device_events(prof)) / calls / 1000)
     return t
 
 
@@ -1137,19 +1240,24 @@ def mesh_reference(device, frames, packed, tms, h, w) -> dict:
         wv, hi = (res.wv_yuv, res.hi_yuv) if y else (res.wv_rgb, res.hi_rgb)
         return [res.vs_counts, hi.to(torch.uint32), wv]
 
-    per_frame = [stats(f, "rgb") for f in frames]
-    ref = {"mesh batch_analyze B=2": to_host([torch.stack(o) for o in zip(*per_frame)])}
+    ref = {}
+    for i, batch in enumerate((frames, frames.flip(0))):
+        per_frame = [stats(f, "rgb") for f in batch]
+        ref[f"mesh batch_analyze B=2 batch {i}"] = to_host(
+            [torch.stack(o) for o in zip(*per_frame)])
     ref["mesh batched step B=2"] = to_host(make_batched_step(
         h, w, scale=2, input_format="packed", device=device)(packed, tms)._asdict())
-    planes = planarize(frames[0])
     k = MESH_OV
     for comp in MESH_COMPONENTS:
-        ref[f"mesh spatial_analyze {comp}"] = to_host(stats(frames[0], comp))
-        for tm in CLOCKS:
-            ref[f"mesh spatial_pipeline {comp} tm {tm}"] = to_host(stats(frames[0], comp) + [
-                ov.zebra_planes(planes, k["th_low"], k["th_high"], tm, 2),
-                ov.falsecolor_planes(planes, 2),
-                ov.focus_peaking_planes(planes, k["peak_th"], k["peak_rgba"])])
+        for i in range(2):
+            ref[f"mesh spatial_analyze {comp} frame {i}"] = to_host(stats(frames[i], comp))
+        for i, tm in MESH_PIPE_CALLS:
+            planes = planarize(frames[i])
+            ref[f"mesh spatial_pipeline {comp} frame {i} tm {tm}"] = to_host(
+                stats(frames[i], comp) + [
+                    ov.zebra_planes(planes, k["th_low"], k["th_high"], tm, 2),
+                    ov.falsecolor_planes(planes, 2),
+                    ov.focus_peaking_planes(planes, k["peak_th"], k["peak_rgba"])])
     return ref
 
 
@@ -1197,14 +1305,16 @@ def mesh_halo_pieces(device, frame, n=2, tm=4.0) -> dict:
 
 def phase_mesh(device, card: str, h=H4K, w=W4K) -> tuple[dict, dict]:
     """``obs_color_monitor_tpu_torch.parallel`` on one card: a world-size-1
-    NCCL group (``make_mesh``), ``batch_analyze`` on B = 2 4K frames,
-    ``make_batched_step(mesh=)`` at B = 2 packed, ``spatial_analyze`` and
-    ``spatial_pipeline`` on one 4K frame, both component families, the
-    pipeline at tm 1.0 and 4.0; each with one K1 and one K2 launch, every
-    output equal to the same calls on the CPU (a gloo group) and to the
-    unsharded port on the card; the halo pieces for 2 and 4 ranks; then the
-    times.  Returns (counts by path, times)."""
-    outs, counts, times = run_mesh(device, h, w, MESH_B, timing=device.type == "cuda")
+    NCCL group (``make_mesh``), ``batch_analyze`` on B = 2 4K frames in two
+    orders, ``make_batched_step(mesh=)`` at B = 2 packed,
+    ``spatial_analyze`` on two 4K frames and ``spatial_pipeline`` on two
+    frames at tm 1.0 and 4.0, both component families; each path a replay
+    of its captured step with one K1 and one K2 launch, every output equal
+    to its step's eager body, to the same calls on the CPU (a gloo group)
+    and to the unsharded port on the card; the halo pieces for 2 and 4
+    ranks; then the times.  Returns (counts by path, times)."""
+    outs, counts, times = run_mesh(device, h, w, MESH_B, timing=device.type == "cuda",
+                                   card=card)
     frames, packed, tms = mesh_inputs(device, h, w)
     ref = mesh_reference(device, frames, packed, tms, h, w)
     cpu_outs = outs
@@ -1213,16 +1323,20 @@ def phase_mesh(device, card: str, h=H4K, w=W4K) -> tuple[dict, dict]:
     for name, got in outs.items():
         compare_fields(f"{name} vs the unsharded port", got, ref[name])
         compare_fields(f"{name} vs the CPU", got, cpu_outs[name])
-        print(f"{name}: every output equal to the unsharded port and to the CPU", flush=True)
+        print(f"{name}: every output equal to its eager body, the unsharded port and the CPU",
+              flush=True)
     for comp in MESH_COMPONENTS:
-        a, b = (outs[f"mesh spatial_pipeline {comp} tm {tm}"]["3"] for tm in CLOCKS)
+        a, b = (outs[f"mesh spatial_pipeline {comp} frame 0 tm {tm}"]["3"] for tm in CLOCKS)
         if np.array_equal(a, b):
             raise AssertionError(f"mesh spatial_pipeline {comp}: the zebra did not move")
+        a, b = (outs[f"mesh spatial_analyze {comp} frame {i}"]["2"] for i in range(2))
+        if np.array_equal(a, b):
+            raise AssertionError(f"mesh spatial_analyze {comp}: two frames gave one waveform")
     for n in (2, 4):
         counts[f"mesh halo pieces n={n}"] = mesh_halo_pieces(device, frames[0], n)
     for k, v in times.items():
-        print(f"mesh time {k}: {v if isinstance(v, (list, int)) else f'{v:.4f} ms'}  [{card}]",
-              flush=True)
+        unit = "" if "share" in k or "bytes" in k or "/ events" in k else " ms"
+        print(f"mesh time {k}: {v:.4f}{unit}  [{card}]", flush=True)
     if times:
         print(f"mesh all_reduce moves {times['all_reduce bytes']} bytes a 4K frame "
               "(256*256 + 3*256*3840 int32)", flush=True)
@@ -2332,7 +2446,8 @@ def main() -> int:
     torch.cuda.synchronize()
     by_path = {**phase_main_path(device), **phase_dock_paths(device),
                **phase_ingest_path(device), **phase_dynamic_dock(device),
-               **phase_stream_dock(device), **phase_captured(device), **phase_batched(device),
+               **phase_stream_dock(device), **phase_captured(device),
+               **phase_scope_apply(device), **phase_batched(device),
                **phase_driver_dock(device), **phase_cli(device)}
     mesh_counts, _ = phase_mesh(device, card)
     by_path.update(mesh_counts)

@@ -3,9 +3,10 @@ src/focuspeaking.c).
 
 Counterpart of ``obs_color_monitor_tpu/models/overlays.py``: each is a
 *source* that captures through a hub (the scaled frame, reference
-zbs_render src/zebra.c:599-628), and ``apply_planes`` applies it to a
-caller's planes as the reference's filter does (zbf_render
-src/zebra.c:630-658).  The overlays run as kernel K3
+zbs_render src/zebra.c:599-628), and a *filter* applied to a caller's
+frame at full resolution as the reference's filter does (zbf_render
+src/zebra.c:630-658): ``apply(frame)`` on an interleaved (H, W, 4) frame,
+``apply_planes`` on (4, H, W) planes.  The overlays run as kernel K3
 (``ops.fused_overlays``): a scope on its own switches on its one output,
 and :func:`shared_overlay_images` serves the shown scopes that read the
 same planes with one launch (the Dock's settled route).  The user-LUT false
@@ -20,11 +21,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..api import check_device
 from ..colorspace import calc_colorspace, quantize_unorm8
 from ..config import FalseColorConfig, FocusPeakingConfig, ShowKey, ZebraConfig
 from ..golden.reference import peaking_threshold_fixed, zebra_tm_advance
 from ..ops import render as render_ops
-from ..ops.convert import planes_to_rgba
+from ..ops.convert import planarize, planes_to_rgba
 from ..ops.fused_overlays import fused_overlays_planes
 from ..ops.graticule import falsecolor_key_overlay, key_canvas_size
 from ..ops.overlays import falsecolor_lut_planes
@@ -79,6 +81,19 @@ class _OverlayScope(Scope, StandaloneScopeMixin):
         return fused_overlays_planes(planes.contiguous(), getattr(self, "tm", 0.0),
                                      packed_out=packed_out, outputs=outputs,
                                      **dict(_K3_IDLE, **self._k3_args(cs)))[self._which]
+
+    def apply(self, frame, cs=None) -> torch.Tensor:
+        """Filter flavour on an interleaved frame: (H, W, 4) u8 in (a tensor
+        on the scope's device, or a host array, which is copied there),
+        (H, W, 4) u8 out, larger where a false-colour key sits beside the
+        image.  The frame is planarized, goes through :meth:`apply_planes`
+        (K3 on a card) and is interleaved back."""
+        if not isinstance(frame, torch.Tensor):
+            frame = torch.from_numpy(np.ascontiguousarray(frame)).to(self._hub.device)
+        check_device(frame, self._hub.device)
+        if frame.dtype != torch.uint8 or frame.ndim != 3 or frame.shape[-1] != 4:
+            raise ValueError(f"frame must be (H, W, 4) u8, got {tuple(frame.shape)} {frame.dtype}")
+        return planes_to_rgba(self.apply_planes(planarize(frame), cs))
 
     def apply_planes(self, planes, cs=None):
         """Filter flavour on planes: (4, H, W) u8 in, (4, H, W) u8 out."""

@@ -38,18 +38,35 @@ A frame reaches the functions in one of two forms:
   (``tests/_multihost_worker.py``).  Every rank's block has the same
   shape, as JAX's sharding requires.
 
-The steps here are not captured as CUDA graphs: a graph would have to
-capture the NCCL collective, which is later work.
+Each function is a host side and a device step, as each JAX path is one
+``jax.jit`` program: the host side checks the arguments and takes this
+rank's block onto its device (:func:`shard_rows`, :func:`shard_batch` or
+the local block), and the device step, a ``graphs.CapturedStep`` cached per
+(path, process group, static arguments) as ``jax.jit`` caches per static
+argument, does the rest.  On a card a call after the first is one CUDA
+graph replay holding K1, K2, the count merge (the concatenation and the
+NCCL all-reduce), saturation, the histogram and, for the pipeline, the
+halo's point-to-point rows and K3's boundary strips; on the CPU the step
+runs as it is.  The block and ``tm`` are the graph's inputs; the rank's
+row offset is a constant of the capture.
+
+A collective in a graph is matched across ranks by position, at every
+replay as in the eager call: every rank must call the same functions with
+the same arguments in the same order (so that each warms up, captures,
+replays and evicts the same graphs alike).  A rank that skips a call
+deadlocks the others.
 """
 
 from __future__ import annotations
 
 import os
+import weakref
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..graphs import CapturedStep
 from ..ops.convert import packed_view
 from ..ops.fused_overlays import fused_overlays_planes
 from ..ops.overlays import clock_tensor
@@ -189,68 +206,19 @@ def _results(vs: torch.Tensor, wv: torch.Tensor):
     return saturate_u8(vs), histogram_from_waveform(wv).to(torch.uint32), saturate_u8(wv)
 
 
-def _all_reduce_counts(vs: torch.Tensor, wv: torch.Tensor, mesh):
+def _all_reduce_counts(vs: torch.Tensor, wv: torch.Tensor, group):
     """The mesh-wide sum of the int32 counts, by one all-reduce of both."""
     flat = torch.cat([vs.reshape(-1), wv.reshape(-1)])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.get_group())
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     return flat[:vs.numel()].view(vs.shape), flat[vs.numel():].view(wv.shape)
 
 
-def batch_analyze(frames, mesh, cs: int, backend: str | None = None, components: str = "rgb",
-                  *, local: bool = False):
-    """Batch data-parallel statistics: this rank's (vs (b, 256, 256) u8,
-    hist (b, 3, 256) u32, waveform (b, 3, 256, W) u8), b = B / n, on its
-    device, with no collective.
-
-    ``frames`` is the global (B, H, W, 4) u8 batch, of which this rank
-    takes :func:`shard_batch`'s slice, or with ``local`` this rank's own
-    (b, H, W, 4) frames.  K1 runs once for the local batch (scale 1, no
-    overlays), then K2 once (both counts), then saturation.  ``components``
-    picks the waveform and histogram family; ``backend`` must be None."""
-    yuv_data = _check_args(backend, components)
-    x = _rgba(_local(frames, mesh) if local else shard_batch(frames, mesh))
-    if x.ndim != 4:
-        raise ValueError(f"frames must be (B, H, W, 4), got {tuple(x.shape)}")
-    ds, yuv, *_ = frame_pass(packed_view(x), packed=True, cs=int(cs), scale=1,
-                             with_overlays=False)
-    return _results(*vs_wv_counts(*stats_inputs(ds, yuv, yuv_data)))
-
-
-def _row_block(frame, mesh, local: bool) -> torch.Tensor:
-    x = _rgba(_local(frame, mesh) if local else shard_rows(frame, mesh))
-    if x.ndim != 3:
-        raise ValueError(f"frame must be (H, W, 4), got {tuple(x.shape)}")
-    return x
-
-
-def spatial_analyze(frame, mesh, cs: int, backend: str | None = None, components: str = "rgb",
-                    *, local: bool = False):
-    """One frame, rows sharded over the mesh, partial counts merged:
-    (vs u8 (256, 256), hist u32 (3, 256), waveform u8 (3, 256, W)), the
-    same on every rank.
-
-    ``frame`` is the whole (H, W, 4) u8 frame (this rank counts
-    :func:`shard_rows`'s block; ``ValueError`` unless the mesh size divides
-    H), or with ``local`` this rank's own block.  K1 and K2 count the block
-    into int32; one ``all_reduce(SUM)`` over the mesh's group merges the
-    vectorscope and waveform counts, then they saturate.  The histogram is
-    the column sum of the merged waveform."""
-    yuv_data = _check_args(backend, components)
-    x = _row_block(frame, mesh, local)
-    ds, yuv, *_ = frame_pass(packed_view(x), packed=True, cs=int(cs), scale=1,
-                             with_overlays=False)
-    vs, wv = vs_wv_counts(*stats_inputs(ds, yuv, yuv_data))
-    return _results(*_all_reduce_counts(vs, wv, mesh))
-
-
-def _halo_rows(planes: torch.Tensor, mesh):
+def _halo_rows(planes: torch.Tensor, group, n: int, r: int):
     """(above, below): the last row of rank r - 1 and the first row of rank
     r + 1, each (4, 1, W) u8, or None at the mesh's edge.  Each rank sends
     its last row down and its first row up in one batch of point-to-point
     operations; a rank with no neighbour posts nothing (at n = 1 nothing at
     all, so NCCL never sends to itself)."""
-    n, r = _size_rank(mesh)
-    group = mesh.get_group()
     ops, above, below = [], None, None
     if r > 0:
         peer = dist.get_global_rank(group, r - 1)
@@ -279,7 +247,8 @@ def peaking_boundary_rows(fp: torch.Tensor, planes: torch.Tensor, above, below,
     right (a substituted copy of the block's own row gives the same zero
     difference, ``mesh.py:235-253``).  Each corrected row is row 1 of a
     3-row strip (its neighbour, itself, the next row in), whose peaking K3
-    computes exactly."""
+    computes exactly.  K3's clock (unused: the zebra is off) is filled on
+    the device, so the strips capture into a graph."""
     hb = planes.shape[1]
     up = planes[:, :1] if above is None else above
     down = planes[:, -1:] if below is None else below
@@ -299,6 +268,125 @@ def peaking_boundary_rows(fp: torch.Tensor, planes: torch.Tensor, above, below,
             peak_rgba=peak_rgba, outputs=(False, False, True))
         fp[:, row] = peaks[:, 1]
     return fp
+
+
+# --------------------------------------------------------------------------
+# the device steps, one captured step per (path, group, static arguments)
+# --------------------------------------------------------------------------
+
+# {process group: {(path, static arguments): its step}}.  Weak: a step holds
+# its group weakly, so the steps of a destroyed group go with it.
+_STEPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _overlay_args(cs: int, th_low: float = 0.75, th_high: float = 1.0, zb_cs=None, fc_cs=None,
+                  peak_th: int = 3062, peak_rgba=(255, 0, 0, 255)) -> dict:
+    """``spatial_pipeline``'s overlay arguments as K1 takes them, with
+    ``zb_cs`` / ``fc_cs`` defaulting to ``cs``."""
+    return dict(th_low=float(th_low), th_high=float(th_high),
+                zb_cs=int(cs if zb_cs is None else zb_cs),
+                fc_cs=int(cs if fc_cs is None else fc_cs), peak_th=int(peak_th),
+                peak_rgba=tuple(int(c) for c in peak_rgba))
+
+
+def _device_step(path: str, group_ref, n: int, r: int, cs: int, yuv_data: bool, ov: dict):
+    """The uncaptured device step of ``path`` on rank ``r`` of ``n``: the
+    block (and for the pipeline the clock) in, the path's outputs out."""
+
+    def counts(x, *clock, overlays=False):
+        ds, yuv, *ovs = frame_pass(packed_view(x), *clock, packed=True, cs=cs, scale=1,
+                                   with_overlays=overlays, **ov)
+        return ds, vs_wv_counts(*stats_inputs(ds, yuv, yuv_data)), ovs
+
+    def batch_analyze(x):
+        return _results(*counts(x)[1])
+
+    def spatial_analyze(x):
+        return _results(*_all_reduce_counts(*counts(x)[1], group_ref()))
+
+    def spatial_pipeline(x, tm):
+        # the zebra's global row: tm + float32(r * H/n), one float32 addition
+        # on the device (mesh.py:228-232); the offset is a capture constant
+        offset = torch.full((), float(r * x.shape[0]), dtype=torch.float32, device=x.device)
+        clock = clock_tensor(tm, x.device) + offset
+        ds, (vs, wv), (zb, fc, fp) = counts(x, clock, overlays=True)
+        group = group_ref()
+        stats = _results(*_all_reduce_counts(vs, wv, group))
+        above, below = _halo_rows(ds, group, n, r)
+        fp = peaking_boundary_rows(fp, ds, above, below, ov["peak_th"], ov["peak_rgba"])
+        return (*stats, zb, fc, fp)
+
+    return {"batch_analyze": batch_analyze, "spatial_analyze": spatial_analyze,
+            "spatial_pipeline": spatial_pipeline}[path]
+
+
+def _mesh_step(path: str, mesh, *, cs: int, components: str = "rgb", **overlays) -> CapturedStep:
+    """The device step of ``path`` ("batch_analyze", "spatial_analyze" or
+    "spatial_pipeline") for this rank of ``mesh`` and these static
+    arguments: ``cs``, ``components`` and, for ``spatial_pipeline``, the
+    overlay arguments (``th_low``, ``th_high``, ``zb_cs``, ``fc_cs``,
+    ``peak_th``, ``peak_rgba``; defaults as :func:`spatial_pipeline`'s).  Made at the first call with these
+    arguments and cached per process group; ``.eager`` is its uncaptured
+    body, ``step(block)`` or ``step(block, tm)``."""
+    yuv_data = _check_args(None, components)
+    ov = _overlay_args(int(cs), **overlays) if path == "spatial_pipeline" else {}
+    group = mesh.get_group()
+    steps = _STEPS.setdefault(group, {})
+    key = (path, int(cs), yuv_data, tuple(sorted(ov.items())))
+    step = steps.get(key)
+    if step is None:
+        body = _device_step(path, weakref.ref(group), mesh.size(), mesh.get_local_rank(),
+                            int(cs), yuv_data, ov)
+        step = steps[key] = CapturedStep(body, mesh_device(mesh))
+    return step
+
+
+# --------------------------------------------------------------------------
+# the public functions: the host side, then the device step
+# --------------------------------------------------------------------------
+
+
+def batch_analyze(frames, mesh, cs: int, backend: str | None = None, components: str = "rgb",
+                  *, local: bool = False):
+    """Batch data-parallel statistics: this rank's (vs (b, 256, 256) u8,
+    hist (b, 3, 256) u32, waveform (b, 3, 256, W) u8), b = B / n, on its
+    device, with no collective.
+
+    ``frames`` is the global (B, H, W, 4) u8 batch, of which this rank
+    takes :func:`shard_batch`'s slice, or with ``local`` this rank's own
+    (b, H, W, 4) frames.  K1 runs once for the local batch (scale 1, no
+    overlays), then K2 once (both counts), then saturation, as one step.
+    ``components`` picks the waveform and histogram family; ``backend``
+    must be None."""
+    _check_args(backend, components)
+    x = _rgba(_local(frames, mesh) if local else shard_batch(frames, mesh))
+    if x.ndim != 4:
+        raise ValueError(f"frames must be (B, H, W, 4), got {tuple(x.shape)}")
+    return _mesh_step("batch_analyze", mesh, cs=cs, components=components)(x)
+
+
+def _row_block(frame, mesh, local: bool) -> torch.Tensor:
+    x = _rgba(_local(frame, mesh) if local else shard_rows(frame, mesh))
+    if x.ndim != 3:
+        raise ValueError(f"frame must be (H, W, 4), got {tuple(x.shape)}")
+    return x
+
+
+def spatial_analyze(frame, mesh, cs: int, backend: str | None = None, components: str = "rgb",
+                    *, local: bool = False):
+    """One frame, rows sharded over the mesh, partial counts merged:
+    (vs u8 (256, 256), hist u32 (3, 256), waveform u8 (3, 256, W)), the
+    same on every rank.
+
+    ``frame`` is the whole (H, W, 4) u8 frame (this rank counts
+    :func:`shard_rows`'s block; ``ValueError`` unless the mesh size divides
+    H), or with ``local`` this rank's own block.  K1 and K2 count the block
+    into int32; one ``all_reduce(SUM)`` over the mesh's group merges the
+    vectorscope and waveform counts, then they saturate.  The histogram is
+    the column sum of the merged waveform."""
+    _check_args(backend, components)
+    x = _row_block(frame, mesh, local)
+    return _mesh_step("spatial_analyze", mesh, cs=cs, components=components)(x)
 
 
 def spatial_pipeline(
@@ -339,19 +427,9 @@ def spatial_pipeline(
 
     ``tm`` is a float or a 0-d float32 tensor on the rank's device;
     ``zb_cs`` / ``fc_cs`` default to ``cs``; ``backend`` must be None."""
-    yuv_data = _check_args(backend, components)
+    _check_args(backend, components)
     x = _row_block(frame, mesh, local)
-    _, r = _size_rank(mesh)
-    hb, dev = x.shape[0], x.device
-    offset = torch.full((), float(r * hb), dtype=torch.float32, device=dev)
-    clock = clock_tensor(tm, dev) + offset
-    peak_rgba = tuple(int(c) for c in peak_rgba)
-    ds, yuv, zb, fc, fp = frame_pass(
-        packed_view(x), clock, packed=True, cs=int(cs), scale=1, with_overlays=True,
-        th_low=th_low, th_high=th_high, zb_cs=int(cs if zb_cs is None else zb_cs),
-        fc_cs=int(cs if fc_cs is None else fc_cs), peak_th=int(peak_th), peak_rgba=peak_rgba)
-    vs, wv = vs_wv_counts(*stats_inputs(ds, yuv, yuv_data))
-    stats = _results(*_all_reduce_counts(vs, wv, mesh))
-    above, below = _halo_rows(ds, mesh)
-    fp = peaking_boundary_rows(fp, ds, above, below, peak_th, peak_rgba)
-    return (*stats, zb, fc, fp)
+    step = _mesh_step("spatial_pipeline", mesh, cs=cs, components=components, th_low=th_low,
+                      th_high=th_high, zb_cs=zb_cs, fc_cs=fc_cs, peak_th=peak_th,
+                      peak_rgba=peak_rgba)
+    return step(x, tm)

@@ -7,6 +7,11 @@ and the focus-peaking halo cross the process boundary) and write this
 rank's outputs to ``<out dir>/rank<r>.npz``; the parent compares them with
 JAX's ``parallel`` functions and with the golden model.  The inputs are
 made here from seeds, by :func:`inputs`, which the parent calls too.
+
+Every public call goes through the cached device steps (``mesh._mesh_step``);
+the worker also records how many steps each path cached and logs the
+operations each step dispatches over four calls (:func:`one_program`), as
+``tests/test_torch_one_program.py`` does for the single-device steps.
 """
 
 import sys
@@ -21,6 +26,8 @@ H, W = 64, 48  # divisible by every mesh size tested: 1, 2, 4, 8
 STEP_B, STEP_H, STEP_W = 8, 32, 48
 CLOCKS = (3.25, 0.3, 1000.37)
 PIPE_TH = dict(th_low=0.5, th_high=1.0)
+HOST_READS = ("_local_scalar_dense", "lift_fresh")
+STEP_PATHS = ("batch_analyze", "spatial_analyze", "spatial_pipeline")
 
 
 def peak_th() -> int:
@@ -129,7 +136,80 @@ def run_cases(mesh_b, mesh_r, device: str = "cpu") -> dict:
         except ValueError:
             raised.append(1)
     out["raised"] = (np.asarray(raised),)
+
+    # the steps the cases cached, by path: batch (cs 2 RGB, cs 1 YUV), spatial
+    # (cs 1 RGB, cs 1 YUV, cs 2 RGB), pipeline (the YUV case, the clock cases
+    # with a float or a tensor clock, the local case); failed calls cache none
+    from obs_color_monitor_tpu_torch.parallel import mesh as pm
+
+    keys = pm._STEPS[mesh_r.get_group()]
+    out["steps"] = (np.asarray([sum(k[0] == p for k in keys) for p in STEP_PATHS]),)
+    out["one_program"] = (np.asarray(one_program(mesh_b, mesh_r)),)
     return out
+
+
+def log_ops(calls) -> list:
+    """The operations each of ``calls`` (functions of no argument)
+    dispatches, with their output shapes."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpLog(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = out if isinstance(out, (tuple, list)) else [out]
+            self.ops.append((str(func), tuple(tuple(o.shape) for o in outs
+                                              if isinstance(o, torch.Tensor))))
+            return out
+
+    logs = []
+    for call in calls:
+        with OpLog() as log:
+            call()
+        logs.append(log.ops)
+    return logs
+
+
+def step_calls(mesh_b, mesh_r) -> dict:
+    """{path: four calls of its cached step}, each on another block (and
+    the pipeline at another clock)."""
+    from obs_color_monitor_tpu_torch.parallel import mesh as pm
+
+    x = inputs()
+    pf = peak_th()
+    calls = {}
+    for path, mesh, key, kw in (
+        ("batch_analyze", mesh_b, "batch", dict(cs=2)),
+        ("spatial_analyze", mesh_r, "yuv", dict(cs=1, components="yuv")),
+        ("spatial_pipeline", mesh_r, "pipe", dict(cs=2, peak_th=pf, **PIPE_TH)),
+    ):
+        step = pm._mesh_step(path, mesh, **kw)
+        shard = pm.shard_batch if path == "batch_analyze" else pm.shard_rows
+        blocks = [shard(np.roll(x[key], 5 * i, axis=-2), mesh) for i in range(4)]
+        clocks = [(tm,) for tm in CLOCKS + (7.5,)] if path == "spatial_pipeline" else [()] * 4
+        calls[path] = [lambda step=step, b=b, c=c: step(b, *c) for b, c in zip(blocks, clocks)]
+    return calls
+
+
+def program_flags(path: str, logs: list) -> list:
+    """[the same operations at the same shapes from the second call on, no
+    host read in any call after the first, a collective in every call (for
+    ``batch_analyze``: in none)] of a step's op logs, 1 for true."""
+    later = [op for ops in logs[1:] for op, _ in ops]
+    c10d = [any(op.startswith("c10d.") for op, _ in ops) for ops in logs]
+    return [int(all(ops == logs[1] for ops in logs[2:])),
+            int(not any(h in op for op in later for h in HOST_READS)),
+            int(all(c10d) if path != "batch_analyze" else not any(c10d))]
+
+
+def one_program(mesh_b, mesh_r) -> list:
+    """:func:`program_flags` of each path of :data:`STEP_PATHS`."""
+    return [program_flags(path, log_ops(calls))
+            for path, calls in step_calls(mesh_b, mesh_r).items()]
 
 
 def main() -> None:

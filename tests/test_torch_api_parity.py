@@ -12,12 +12,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import obs_color_monitor_tpu.models as jmodels
 import obs_color_monitor_tpu.ops as jops
 import obs_color_monitor_tpu.parallel as jpar
 from obs_color_monitor_tpu.ops import convert as jconv
 from obs_color_monitor_tpu.ops import graticule as jgrat
 from obs_color_monitor_tpu.ops import overlays as jov
 from obs_color_monitor_tpu.ops import stats as jstats
+import obs_color_monitor_tpu_torch.models as tmodels
 import obs_color_monitor_tpu_torch.ops as tops
 import obs_color_monitor_tpu_torch.parallel as tpar
 from obs_color_monitor_tpu_torch.ops import convert as tconv
@@ -54,6 +56,20 @@ def test_ops_all_holds_jax_names(name):
 @pytest.mark.parametrize("name", sorted(jpar.__all__))
 def test_parallel_all_holds_jax_names(name):
     assert name in tpar.__all__ and hasattr(tpar, name)
+
+
+# JAX's traced-render plumbing (a leaf tuple traced into the Dock's jitted
+# stream program, and its cache key): the port's captured steps
+# (``graphs.CapturedStep``) take its place, so no port class has it
+TRACED_RENDER = {"render_leaves", "render_traced", "render_trace_key"}
+
+
+@pytest.mark.parametrize("name", ["Vectorscope", "Waveform", "Histogram", "Zebra", "FalseColor",
+                                  "FocusPeaking", "Dock"])
+def test_models_classes_hold_jax_methods(name):
+    public = lambda cls: {n for n in dir(cls) if not n.startswith("_")}
+    missing = public(getattr(jmodels, name)) - TRACED_RENDER - public(getattr(tmodels, name))
+    assert not missing, (name, sorted(missing))
 
 
 @pytest.mark.parametrize("h,w", SHAPES)

@@ -770,6 +770,72 @@ def test_mesh_world_size_one_on_the_card(nccl_meshes, h, w, comp):
         assert np.array_equal(got[key], want[key]), key
 
 
+@pytest.mark.parametrize("comp", ["rgb", "yuv"])
+def test_mesh_paths_replay_one_graph(nccl_meshes, comp):
+    """At world size 1 under NCCL each mesh path is one captured step: on
+    two frames and at tm 1.0 and 4.0 (a float, then a 0-d tensor) every
+    call equals its ``.eager`` body and the unsharded port on the CPU, each
+    step holds one graph after the repeated calls, and every call counts
+    one K1 and one K2 launch and no K3 (no halo at one rank)."""
+    from obs_color_monitor_tpu_torch import parallel as par
+    from obs_color_monitor_tpu_torch.ops import overlays as ov
+    from obs_color_monitor_tpu_torch.ops.fused import analyze
+    from obs_color_monitor_tpu_torch.parallel import mesh as pm
+
+    mb, mr = nccl_meshes
+    dev = cuda_device(mb)
+    h, w = 130, 256
+    y = comp == "yuv"
+    frames = [_bright_frame(h, w, 60 + i) for i in range(2)]
+    frames[1][::7, :, :3] = 255
+
+    def stats(f):
+        res = analyze(torch.from_numpy(f), 2, scale=1, need_vs=True, need_wv_rgb=not y,
+                      need_hi_rgb=not y, need_wv_yuv=y, need_hi_yuv=y)
+        wv, hi = (res.wv_yuv, res.hi_yuv) if y else (res.wv_rgb, res.hi_rgb)
+        return [res.vs_counts, hi.to(torch.uint32), wv]
+
+    def overlays(f, tm):
+        planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(f, -1, 0)))
+        return [ov.zebra_planes(planes, 0.75, 1.0, tm, 2), ov.falsecolor_planes(planes, 1),
+                ov.focus_peaking_planes(planes, 3062, (255, 84, 0, 255))]
+
+    kw = dict(cs=2, components=comp)
+    steps = {"batch": pm._mesh_step("batch_analyze", mb, **kw),
+             "spatial": pm._mesh_step("spatial_analyze", mr, **kw),
+             "pipeline": pm._mesh_step("spatial_pipeline", mr, **kw, **ARGS)}
+    cases = []  # (step, its call, its eager call, the CPU's outputs)
+    for i, f in enumerate(frames):
+        x = torch.from_numpy(f).to(dev)
+        batch = torch.from_numpy(np.stack([f, frames[1 - i]])).to(dev)
+        cases += [
+            (steps["batch"], lambda b=batch: par.batch_analyze(b, mb, **kw),
+             lambda b=batch: steps["batch"].eager(b),
+             [torch.stack(o) for o in zip(stats(f), stats(frames[1 - i]))]),
+            (steps["spatial"], lambda x=x: par.spatial_analyze(x, mr, **kw),
+             lambda x=x: steps["spatial"].eager(x), stats(f))]
+        for tm in (1.0, 4.0):
+            clock = tm if i == 0 else torch.tensor(tm, dtype=torch.float32, device=dev)
+            cases.append((steps["pipeline"],
+                          lambda x=x, c=clock: par.spatial_pipeline(x, mr, tm=c, **kw, **ARGS),
+                          lambda x=x, c=clock: steps["pipeline"].eager(x, c),
+                          stats(f) + overlays(f, tm)))
+    zebras = []
+    for step, call, eager, want in cases:
+        k1, k2, k3 = (tp.frame_pass.launches, ss.vs_wv_counts.launches,
+                      fo.fused_overlays_planes.launches)
+        got = call()
+        assert (tp.frame_pass.launches - k1, ss.vs_wv_counts.launches - k2,
+                fo.fused_overlays_planes.launches - k3) == (1, 1, 0)
+        assert len(got) == len(want)
+        for g, e, r in zip(got, eager(), want):
+            assert torch.equal(g, e) and torch.equal(g.cpu(), r)
+        if len(got) == 6:
+            zebras.append(got[3].cpu())
+    assert not torch.equal(zebras[0], zebras[1])  # the clock moved the zebra
+    assert all(step.graphs == 1 for step in steps.values())
+
+
 def cuda_device(mesh):
     from obs_color_monitor_tpu_torch.parallel import mesh_device
 
@@ -813,6 +879,32 @@ def test_mesh_halo_pieces_on_the_card(cuda, h, w, cuts):
     assert fo.fused_overlays_planes.launches > k3
     for i in range(3):
         assert torch.equal(torch.cat([p[i] for p in parts], dim=1), whole[2 + i])
+
+
+def test_overlay_scopes_apply_on_the_card(cuda):
+    """The filter flavour ``apply(frame)`` of Zebra, FalseColor (plain, with
+    a LUT, with a key beside the image) and FocusPeaking on the card equals
+    the same scope on the CPU; the K3 route launches K3 once a call."""
+    from obs_color_monitor_tpu_torch import FalseColorConfig, FocusPeakingConfig, ShowKey
+    from obs_color_monitor_tpu_torch.models import FalseColor, FocusPeaking, Zebra
+
+    f = _bright_frame(270, 480, 70)
+    lut = np.random.default_rng(3).integers(0, 256, (9, 4), np.uint8)
+    for make, k3 in ((lambda d: Zebra(device=d), 1), (lambda d: FalseColor(device=d), 1),
+                     (lambda d: FalseColor(FalseColorConfig(use_lut=True, lut=lut), device=d), 0),
+                     (lambda d: FalseColor(FalseColorConfig(show_key=ShowKey.OUTSIDE),
+                                           device=d), 1),
+                     (lambda d: FocusPeaking(FocusPeakingConfig(peaking_threshold=0.02),
+                                             device=d), 1)):
+        card, host = make(cuda), make("cpu")
+        if isinstance(card, Zebra):
+            card.tick(0.5)
+            host.tick(0.5)
+        before = fo.fused_overlays_planes.launches
+        got = card.apply(torch.from_numpy(f).to(cuda))
+        assert fo.fused_overlays_planes.launches - before == k3
+        assert torch.equal(got.cpu(), host.apply(f))
+        assert torch.equal(card.apply(f).cpu(), got.cpu())
 
 
 def test_histogram_render_ties_on_the_card(cuda):

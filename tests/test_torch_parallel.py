@@ -413,3 +413,24 @@ def test_ranks_raise_on_bad_arguments(ranks, n):
     for r in range(n):
         (raised,) = ranks[n][r]["raised"]
         assert raised.tolist() == [1] * 7, (r, raised)
+
+
+@pytest.mark.parametrize("n", RANKS)
+def test_ranks_cases_ran_through_the_cached_steps(ranks, n):
+    """Every case of the workers went through ``mesh._mesh_step``: one step
+    per (path, static arguments) held per group, the calls that differ
+    only in their frame, rows or clock (a float or a tensor) sharing it."""
+    for r in range(n):
+        (steps,) = ranks[n][r]["steps"]
+        assert steps.tolist() == [2, 3, 3], (r, steps)
+
+
+@pytest.mark.parametrize("n", RANKS)
+def test_ranks_mesh_steps_are_one_program(ranks, n):
+    """At n ranks each path's step dispatches the same operations from its
+    second call on, reads nothing back to the host and holds its collective
+    (the all-reduce, and the halo's rows in the pipeline) in every call:
+    what capturing it as one CUDA graph needs."""
+    for r in range(n):
+        (flags,) = ranks[n][r]["one_program"]
+        assert flags.tolist() == [[1, 1, 1]] * 3, (r, flags)

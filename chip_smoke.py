@@ -51,7 +51,12 @@ any failure raises and the exit code is non-zero:
    overlay scopes' filter flavour ``apply(frame)`` on an interleaved 4K
    frame (Zebra, FalseColor plain, with a LUT and with its key beside the
    image, FocusPeaking at two thresholds) equal to the CPU, K3 once a call
-   but for the LUT; the batched step (``make_batched_step``) at B = 2 and 4 on 4K packed, B = 4
+   but for the LUT; ``ops.fused.analyze`` with the JAX package's keywords
+   (``keep_rgba``, ``tm`` as a float and a 0-d tensor, ``is_packed``,
+   ``backend``) at 4K scale 2 on the packed view and RGBA for the needs of
+   K6, K7 and K8, each call equal to the default call with its K1 and K2
+   launches, ``backend="xla"`` refused on the card and equal on the CPU;
+   the batched step (``make_batched_step``) at B = 2 and 4 on 4K packed, B = 4
    on 1080p and B = 2 on 4K NV12 frames, each frame equal to the eager
    full step, one frame to the CPU, with one K1, K2 and K4 launch per
    batch; one 270x480 frame against the golden model.  The steps run as
@@ -81,7 +86,8 @@ any failure raises and the exit code is non-zero:
    4K full step, the 4K NV12 dock step, its dynamic-ROI form, the settled
    Dock and the batched step at B = 1, 2, 4; each kernel beside its plain
    version and, where one exists, the one PyTorch call that computes the
-   same function (K2 and K3 also in rect mode, K2 also on a flat frame, K1
+   same function (K2 and K3 also in rect mode, K2 also on a flat frame, K6
+   also on a whole 4K frame at scale 1 (the mesh paths' shape), K1
    as its overlay+scale pass and its scale-only pass, K3 also with one
    output and with a cold L2, K1, K2, K4 and K5 also batched, each with
    its bound); then each kernel's device time alone, from torch.profiler:
@@ -99,7 +105,16 @@ any failure raises and the exit code is non-zero:
    and ``.p010`` file (``dock``, ``--one-program``, ``scope vectorscope``
    and ``waveform``, ``--out-video``, ``--live`` with one image fetched
    over HTTP, ``info``), each PNG equal to the directly driven result
-   (step 4's rules for the launch counts apply to each); after the timing,
+   (step 4's rules for the launch counts apply to each), and the dock with
+   focus peaking and the vectorscope on a 4-frame file; then the installed
+   console script: the package laid out as its wheel installs it (``pip
+   wheel`` + ``pip install --target``, or a copy of the wheel's files
+   where the Python lacks pip or setuptools) outside the repository and
+   made read-only, fresh processes with only the layout on ``PYTHONPATH``
+   and a fresh ``XDG_CACHE_HOME`` that build the kernels into that cache
+   (timed), run ``info``, the dock and the vectorscope, each PNG equal
+   byte for byte to the in-process one, the layout unchanged and neither
+   JAX nor the JAX package imported; after the timing,
    the driver soak: a fresh Dock fed while its worker captures, then
    unpaced and 60 fps windows, each plain and under torch.profiler: frames
    pushed / processed / dropped, the sink's frames per second, push-to-panel
@@ -189,6 +204,108 @@ def make_nv12(h: int, w: int, seed: int, bits: int = 8, msb: bool = False):
         y, uv = (y << (16 - bits)).astype(np.uint16), (uv << (16 - bits)).astype(np.uint16)
     y[0, :2] = uv[0, :2] = 65535
     return y, uv
+
+
+ANALYZE_FIELDS = ("yuv_planes", "vs_counts", "wv_rgb", "wv_yuv", "hi_rgb", "hi_yuv", "planes")
+ANALYZE_NEEDS = (  # the K2 mode each set of needs runs, as the kernel line books it
+    ("K6", dict(need_vs=True, need_wv_rgb=True, need_hi_yuv=True)),  # then the YUV waveform
+    ("K7", dict(need_vs=True)),
+    ("K8", dict(need_wv_rgb=True, need_hi_rgb=True)),
+)
+
+
+def same_analysis(what: str, got, want) -> None:
+    """Raise unless two ``AnalysisResult``s hold the same fields (None in
+    the same places), each equal (tensors on any device)."""
+    import torch
+
+    for k in ANALYZE_FIELDS:
+        a, b = getattr(got, k), getattr(want, k)
+        if (a is None) != (b is None) or (
+                a is not None and (a.shape != b.shape or not torch.equal(a.cpu(), b.cpu()))):
+            raise AssertionError(f"{what}: field {k} differs")
+
+
+def phase_analyze_keywords(device, h=H4K, w=W4K) -> dict:
+    """``ops.fused.analyze`` with the JAX package's keywords, at 4K scale 2
+    on the packed view and on RGBA, for the needs of K6 (both counts, then
+    the YUV waveform alone), K7 (the vectorscope alone) and K8 (the
+    waveform alone): ``keep_rgba`` True and False, ``tm`` 0.0 and 4.0 as a
+    float and as a 0-d tensor, ``is_packed=True`` (the packed view) and
+    ``backend="pallas"``; and the host array itself, without ``backend``
+    and with ``backend=default_backend()``.  Each call's fields equal the
+    default call's (``planes`` None without ``keep_rgba``), with the
+    default call's K1 and K2 launches, a host array's on the card;
+    ``backend="xla"`` on a CUDA tensor raises ValueError; the host array
+    with ``backend="xla"`` runs on the CPU, equal to the card.  Returns the
+    default calls' counts by path."""
+    import torch
+
+    from obs_color_monitor_tpu_torch.ops.fused import analyze, default_backend
+
+    f = make_frame(h, w, "random", 4100)
+    forms = {"packed": f.view(np.int32)[..., 0], "rgba": f}
+    route = "pallas" if device.type == "cuda" else "xla"
+
+    def counted(call):
+        """The call's result and its K1 and K2 launches (K2's pair as
+        ``both``, its kernels alone as K7 / K8)."""
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        reset_counts()
+        out = call()
+        return out, {k: v for k, v in read_counts().items() if k in ("K1", "both", "K7", "K8")}
+
+    by_path = {}
+    for fmt, host in forms.items():
+        x = torch.from_numpy(np.ascontiguousarray(host)).to(device)
+        for mode, needs in ANALYZE_NEEDS:
+            kw = dict(cs=2, scale=2, **needs)
+            name = f"analyze {fmt} {mode}"
+            reset_counts()
+            base, k12 = counted(lambda: analyze(x, **kw))
+            by_path[name] = path_counts(name, read_counts(), ("K1", mode), device, both_as="K6")
+            variants = [("keep_rgba=True", dict(keep_rgba=True)),
+                        ("keep_rgba=False", dict(keep_rgba=False)),
+                        ("tm=0.0", dict(tm=0.0)), ("tm=4.0", dict(tm=4.0)),
+                        ("tm=tensor(0.0)", dict(tm=torch.zeros((), device=device))),
+                        ("tm=tensor(4.0)", dict(tm=torch.full((), 4.0, device=device))),
+                        (f"backend={route!r}", dict(backend=route))]
+            if fmt == "packed":
+                variants.append(("is_packed=True", dict(is_packed=True)))
+            for label, extra in variants:
+                got, c = counted(lambda: analyze(x, **kw, **extra))
+                if c != k12:
+                    raise AssertionError(f"{name} {label}: launches {c}, the default call's "
+                                         f"{k12}")
+                want = base._replace(planes=None) if extra.get("keep_rgba") is False else base
+                same_analysis(f"{name} {label}", got, want)
+            if default_backend() == route:  # a host array goes to the default device
+                for label, extra in (("host array", {}),
+                                     ("host array backend=default_backend()",
+                                      dict(backend=default_backend()))):
+                    got, c = counted(lambda: analyze(host, **kw, **extra))
+                    if c != k12 or got.planes.device.type != device.type:
+                        raise AssertionError(f"{name} {label}: launches {c} on "
+                                             f"{got.planes.device}, the default call's {k12} "
+                                             f"on {device}")
+                    same_analysis(f"{name} {label}", got, base)
+                    variants.append((label, extra))
+            if device.type == "cuda":
+                try:
+                    analyze(x, backend="xla", **kw)
+                except ValueError as e:
+                    print(f"{name} backend='xla' on the card: ValueError ({e})", flush=True)
+                else:
+                    raise AssertionError(f"{name}: backend='xla' ran on a CUDA tensor")
+            cpu = analyze(host, backend="xla", **kw)
+            if cpu.planes.device.type != "cpu":
+                raise AssertionError(f"{name}: backend='xla' ran on {cpu.planes.device}")
+            same_analysis(f"{name} CPU backend='xla'", cpu, base)
+            print(f"{name}: {len(variants)} keyword calls equal to the default call with its "
+                  f"launches {k12}; the CPU's backend='xla' call equal",
+                  flush=True)
+    return by_path
 
 
 def as_input(f: np.ndarray, packed: bool, device):
@@ -1624,6 +1741,15 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     fns["k8"] = lambda: ss.vs_wv_counts(*k8_in, need_vs=False)
     fns["k8_plain"] = lambda: ss.vs_wv_counts_reference(*k8_in, need_vs=False)
     bounds["K6"] = bound(ch * cw * 6 + 65536 * 4 + 3 * 256 * cw * 4, ch * cw * 10)
+    # K6 at the mesh paths' shape, where most of its launches are: both
+    # counts of a whole 4K frame at scale 1
+    ds1, yuv1, *_ = pl.frame_pass_reference(x, packed=True, cs=2, scale=1, with_overlays=False)
+    k6_4k_in = pl.stats_inputs(ds1, yuv1, False)
+    fns["k6_4k_library"], check = library_counts(*k6_4k_in)
+    check("K6 4K scale 1 library")
+    fns["k6_4k"] = lambda: ss.vs_wv_counts(*k6_4k_in)
+    fns["k6_4k_plain"] = lambda: ss.vs_wv_counts_reference(*k6_4k_in)
+    bounds["K6 4K"] = bound(H4K * W4K * 6 + 65536 * 4 + 3 * 256 * W4K * 4, H4K * W4K * 10)
     bounds["K7"] = bound(h * w * 2 + 65536 * 4, h * w * 4)
     bounds["K8"] = bound(ch * cw * 3 + 3 * 256 * cw * 4, ch * cw * 6)
     # K9 at the ingest path's shape, a 4K planar frame at scale 2: the
@@ -2311,7 +2437,225 @@ def phase_cli(device, h=H4K, w=W4K, frames=CLI_FRAMES) -> dict:
                 not info["kernels_built"] or not info["native_runtime"]
                 or info["device_name"] != __import__("torch").cuda.get_device_name(0)):
             raise AssertionError(f"cli info: {info}")
-    return by_path
+        # the installed phase's commands, here in process on the same input:
+        # their PNGs are what the installed console script must write
+        few, settings = installed_inputs(tmp, h, w)
+        pngs = {}
+        for name, (args, needs) in installed_commands(few, settings, tmp).items():
+            run(name, args, needs)
+            pngs[name] = Path(args[args.index("--out") + 1]).read_bytes()
+        fp = Dock(roi=ROIConfig(target_scale=2, interleave=1), device=device)
+        fp.config.show_focuspeaking = True
+        for y, uv in planes[:INSTALLED_FRAMES]:
+            fp.push_nv12(y, uv, cs=2)
+        want = fp.render(width=512, height=1536)
+        same("dock focus peaking, 4 frames", pngs["dock focus peaking, 4 frames"], want)
+        if np.array_equal(want, fanout_dock(planes[:INSTALLED_FRAMES])):
+            raise AssertionError("cli dock focus peaking: the settings changed nothing")
+        sc = Vectorscope(VectorscopeConfig(target_scale=2), device=device)
+        for y, uv in planes[:INSTALLED_FRAMES]:
+            sc.push_nv12(y, uv, cs=2)
+            sc._hub.tick()
+        same("scope vectorscope, 4 frames", pngs["scope vectorscope, 4 frames"], sc.render())
+    return by_path, pngs
+
+
+INSTALLED_FRAMES = 4  # frames of the installed console script's NV12 file
+PORT = "obs_color_monitor_tpu_torch"
+
+
+def installed_inputs(tmp, h: int, w: int) -> tuple:
+    """The installed-route commands' inputs, written into ``tmp``: a 4K
+    NV12 file of INSTALLED_FRAMES frames (the CLI phase's first ones) and
+    dock settings that show focus peaking.  Both phases write the same
+    bytes."""
+    nv12, settings = tmp / "few.nv12", tmp / "focus_peaking.json"
+    with open(nv12, "wb") as f:
+        for b in nv12_buffers(h, w, INSTALLED_FRAMES, 1500):
+            f.write(b.tobytes())
+    settings.write_text(json.dumps({"focuspeaking-shown": True}))
+    return nv12, settings
+
+
+def installed_commands(nv12, settings, out) -> dict:
+    """name -> (CLI arguments but --size and --device, the kernels each
+    must launch): the dock with focus peaking (K4, K1, K2, K3) and the
+    vectorscope (K4, K1, K7), writing PNGs into ``out``."""
+    io = ["--input", str(nv12), "--frames", str(INSTALLED_FRAMES)]
+    return {
+        "dock focus peaking, 4 frames": (["dock", *io, "--load-settings", str(settings), "--out",
+                                str(out / "dock_focus_peaking.png")], ("K1", "K2", "K3", "K4")),
+        "scope vectorscope, 4 frames": (["scope", "vectorscope", *io, "--out",
+                               str(out / "scope_vectorscope.png")], ("K1", "K4", "K7")),
+    }
+
+
+def tree_state(root) -> dict:
+    """Every file and directory under ``root``: relative path -> (mode,
+    sha256 of a file's bytes)."""
+    import hashlib
+
+    state = {}
+    for p in sorted(root.rglob("*")):
+        digest = hashlib.sha256(p.read_bytes()).hexdigest() if p.is_file() else None
+        state[str(p.relative_to(root))] = (p.stat().st_mode, digest)
+    return state
+
+
+def set_writable(root, on: bool) -> None:
+    """Give every file and directory under ``root`` (itself included) its
+    owner's write bit, or take every write bit away."""
+    import os
+
+    for p in [root, *root.rglob("*")]:
+        if p.is_symlink():
+            continue
+        mode = p.stat().st_mode
+        os.chmod(p, mode | 0o200 if on else mode & ~0o222)
+
+
+def lay_out_package(repo, root) -> tuple:
+    """The package laid out as its wheel installs it, in ``root/site``:
+    ``pip wheel --no-deps --no-build-isolation --no-index`` of a copy of
+    the project's files, then ``pip install --no-deps --no-index --target``
+    (the console script lands in ``site/bin``).  Raises where the Python
+    lacks pip or setuptools.  Returns (the layout, the wheel's name)."""
+    import importlib.util
+    import os
+    import shutil
+
+    site, stage, wheels = root / "site", root / "stage", root / "wheels"
+    skip = shutil.ignore_patterns("_build", "__pycache__", "*.pyc", "*.so")
+    missing = [m for m in ("pip", "setuptools") if not importlib.util.find_spec(m)]
+    if missing:
+        raise AssertionError(f"installed: cannot build the wheel, {missing} missing")
+    for name in (PORT, "obs_color_monitor_tpu"):
+        shutil.copytree(repo / name, stage / name, ignore=skip)
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy2(repo / name, stage / name)
+    env = {**os.environ, "PIP_CONFIG_FILE": os.devnull, "PIP_NO_INDEX": "1",
+           "PIP_DISABLE_PIP_VERSION_CHECK": "1", "PIP_NO_INPUT": "1"}
+
+    def pip(*argv):
+        p = subprocess.run([sys.executable, "-m", "pip", "--disable-pip-version-check", *argv],
+                           cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"pip {argv[0]}: exit {p.returncode}\n{p.stdout[-3000:]}\n"
+                                 f"{p.stderr[-3000:]}")
+
+    pip("wheel", "--no-deps", "--no-build-isolation", "--no-index", "-w", str(wheels), str(stage))
+    whl = sorted(wheels.glob("*.whl"))
+    pip("install", "--no-deps", "--no-index", "--target", str(site), str(whl[0]))
+    return site, whl[0].name
+
+
+def phase_installed_cli(device, pngs: dict, h=H4K, w=W4K) -> None:
+    """The console script of the installed package, on ``device``.  The
+    package is laid out as its wheel installs it (:func:`lay_out_package`)
+    outside the repository and made read-only; fresh processes, started in
+    an empty directory with only that layout on ``PYTHONPATH`` and a fresh
+    ``XDG_CACHE_HOME``, build the kernels (timed), then run ``info``, the
+    dock with focus peaking and the vectorscope on a 4K NV12 file (the
+    console script pip made), each to exit 0.
+    The package imported is the layout's; the kernels are built into the
+    cache from the installed sources, with the tree's source hash; the
+    layout is unchanged after the runs; no process imported ``jax`` or
+    ``obs_color_monitor_tpu``; each PNG equals the in-process CLI phase's
+    byte for byte (``pngs``); ``info`` reports whether the native runtime
+    is active."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from obs_color_monitor_tpu_torch import _kernels
+
+    repo = Path(__file__).resolve().parent
+    root = Path(tempfile.mkdtemp(prefix="ocm_installed_"))
+    try:
+        cache, work = root / "cache", root / "work"
+        cache.mkdir()
+        work.mkdir()
+        t0 = time.perf_counter()
+        site, wheel = lay_out_package(repo, root)
+        print(f"installed: laid out in {time.perf_counter() - t0:.2f} s by pip wheel + pip "
+              f"install --target ({wheel})", flush=True)
+        set_writable(site, False)
+        before = tree_state(site)
+        few, settings = installed_inputs(work, h, w)
+        env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHON")}
+        env.update(PYTHONPATH=str(site), XDG_CACHE_HOME=str(cache), PYTHONDONTWRITEBYTECODE="1",
+                   PYTHONNOUSERSITE="1")
+        script = site / "bin" / "obs-color-monitor-tpu-torch"
+        if not script.exists():
+            raise AssertionError(f"installed: pip made no console script {script}")
+        size = ["--size", f"{w}x{h}", "--device", device.type]
+
+        def run(name, argv):
+            """One fresh process; raise unless it exits 0 without importing
+            JAX or the JAX package.  Returns (stdout, seconds)."""
+            t = time.perf_counter()
+            p = subprocess.run([sys.executable, "-X", "importtime", *argv], cwd=work, env=env,
+                               capture_output=True, text=True, timeout=600)
+            dt = time.perf_counter() - t
+            imports = [line.split("|")[-1].strip() for line in p.stderr.splitlines()
+                       if line.startswith("import time:")]
+            errors = "\n".join(ln for ln in p.stderr.splitlines()
+                               if not ln.startswith("import time:"))
+            if p.returncode != 0:
+                raise AssertionError(f"installed {name}: exit {p.returncode}\n"
+                                     f"{p.stdout[-3000:]}\n{errors[-3000:]}")
+            loaded = sorted(m for m in imports if m.split(".")[0] in ("jax", "obs_color_monitor_tpu"))
+            if loaded:
+                raise AssertionError(f"installed {name} imported {loaded}")
+            print(f"installed {name}: exit 0 in {dt:.2f} s ({len(imports)} modules imported, "
+                  "none of jax or obs_color_monitor_tpu)", flush=True)
+            return p.stdout, dt
+
+        # the package the processes import, and (on a card) the kernels
+        # built from its sources, timed
+        code = ("import json, time; import obs_color_monitor_tpu_torch as p; "
+                "from obs_color_monitor_tpu_torch import _kernels as k; "
+                f"t0 = time.perf_counter(); lib = k.build() if {device.type == 'cuda'} else None; "
+                "print(json.dumps({'package': p.__file__, 'csrc': str(k.CSRC), "
+                "'library': lib and str(lib), 'hash': k.source_hash(), "
+                "'seconds': time.perf_counter() - t0}))")
+        out, _ = run("kernel build", ["-c", code])
+        built = json.loads(out.strip().splitlines()[-1])
+        if not (Path(built["package"]).is_relative_to(site)
+                and Path(built["csrc"]).is_relative_to(site)):
+            raise AssertionError(f"installed: the package imported is not the layout's: {built}")
+        print(f"installed package: {built['package']}", flush=True)
+        if device.type == "cuda":
+            lib = Path(built["library"])
+            print(f"installed kernel build: nvcc {built['seconds']:.2f} s into {lib}", flush=True)
+            if (lib.parent != cache / PORT or not lib.exists()
+                    or built["hash"] != _kernels.source_hash()
+                    or lib.name != f"libocm_kernels_{_kernels.source_hash()}.so"):
+                raise AssertionError(f"installed: the kernels were not built into the cache "
+                                     f"from the tree's sources: {built}, tree hash "
+                                     f"{_kernels.source_hash()}")
+        out, _ = run("info", ["-m", PORT, "info", "--device", device.type])
+        info = json.loads(out)
+        print(f"installed info: native_runtime {info['native_runtime']}, kernels_built "
+              f"{info['kernels_built']}", flush=True)
+        if device.type == "cuda" and not info["kernels_built"]:
+            raise AssertionError(f"installed info: {info}")
+        for name, (args, _) in installed_commands(few, settings, work).items():
+            run(f"{name} ({script.name})", [str(script)] + args + size)
+            got = Path(args[args.index("--out") + 1]).read_bytes()
+            if got != pngs[name]:
+                raise AssertionError(f"installed {name}: the PNG differs from the in-process "
+                                     "CLI's")
+            print(f"installed {name}: PNG equal byte for byte to the in-process CLI's", flush=True)
+        after = tree_state(site)
+        if after != before or (site / PORT / "_build").exists():
+            changed = sorted(set(before.items()) ^ set(after.items()))
+            raise AssertionError(f"installed: the layout changed: {changed[:10]}")
+        print(f"installed: layout unchanged ({len(after)} entries), read-only", flush=True)
+    finally:
+        set_writable(root, True)
+        shutil.rmtree(root, ignore_errors=True)
 
 
 KERNELS = [  # id, wrapper, source, TPU kernel it replaces, timing key, library key
@@ -2386,6 +2730,13 @@ def kernel_line(launches: dict, by_path: dict, err: dict, t: dict, bounds: dict,
                 "one_output_cold_ms": t["k3_fp_cold"],
                 "one_output_bound_ms": bounds["K3 one output"][0],
             })
+        if kid == "K6":
+            entry.update({
+                "4k_scale1_ms": t["k6_4k"], "4k_scale1_plain_ms": t["k6_4k_plain"],
+                "4k_scale1_library_ms": t["k6_4k_library"],
+                "4k_scale1_device_ms": dev["k6_4k"][0], "4k_scale1_graph_ms": dev["k6_4k"][2],
+                "4k_scale1_bound_ms": bounds["K6 4K"][0], "4k_scale1_bound_by": bounds["K6 4K"][1],
+            })
         if kid == "K2":
             entry.update({"flat_ms": t["k2_flat"], "flat_device_ms": dev["k2_flat"][0],
                           "flat_device_span_ms": dev["k2_flat"][1],
@@ -2447,8 +2798,11 @@ def main() -> int:
     by_path = {**phase_main_path(device), **phase_dock_paths(device),
                **phase_ingest_path(device), **phase_dynamic_dock(device),
                **phase_stream_dock(device), **phase_captured(device),
-               **phase_scope_apply(device), **phase_batched(device),
-               **phase_driver_dock(device), **phase_cli(device)}
+               **phase_scope_apply(device), **phase_analyze_keywords(device),
+               **phase_batched(device), **phase_driver_dock(device)}
+    cli_counts, cli_pngs = phase_cli(device)
+    by_path.update(cli_counts)
+    phase_installed_cli(device, cli_pngs)
     mesh_counts, _ = phase_mesh(device, card)
     by_path.update(mesh_counts)
     phase_golden(device)

@@ -5,10 +5,14 @@ No JAX counterpart: this stands in for the Mosaic compile that
 ``ops/csrc/`` is compiled by ``nvcc`` into ONE shared library with a plain
 C interface (no PyTorch headers, so the build takes seconds), loaded with
 ``ctypes``.  Each ``.cu`` compiles in its own ``nvcc`` process, all started
-together, and one more links the objects.  The build runs at first use,
-writes into ``_build/`` next to this file, and is keyed on a hash of the
-sources: an edited kernel rebuilds, an unchanged one loads the existing
-library.
+together, and one more links the objects.  The build runs at first use and
+is keyed on a hash of the sources: an edited kernel rebuilds, an unchanged
+one loads the existing library.  It writes into ``_build/`` next to this
+file where it may (a checkout), else into the per-user cache,
+``$XDG_CACHE_HOME/obs_color_monitor_tpu_torch/`` (``~/.cache`` without the
+variable): an installed package is often read-only to the user who runs it.
+A library of the present sources already in either place is loaded from
+there, writable or not.
 
 Each C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
@@ -92,13 +96,53 @@ def _run_all(cmds: list[list[str]], verbose: bool) -> None:
                 proc.wait()
 
 
+def cache_dir() -> Path:
+    """The per-user cache the library is built into when ``BUILD_DIR``
+    cannot be written."""
+    base = os.environ.get("XDG_CACHE_HOME", "")
+    root = Path(base) if os.path.isabs(base) else Path.home() / ".cache"
+    return root / "obs_color_monitor_tpu_torch"
+
+
+def _writable(d: Path) -> bool:
+    """Whether a build may write ``d``: its nearest existing directory
+    grants writing.  A directory without a write bit counts as read-only
+    for root too, whom ``os.access`` alone lets write anywhere."""
+    while not d.exists():
+        if d.parent == d:
+            return False
+        d = d.parent
+    return d.is_dir() and os.access(d, os.W_OK | os.X_OK) and bool(d.stat().st_mode & 0o222)
+
+
+def build_dir() -> Path:
+    """Where the library is built: ``BUILD_DIR`` where it may be written,
+    else :func:`cache_dir`; neither raises, naming both."""
+    for d in (BUILD_DIR, cache_dir()):
+        if _writable(d):
+            return d
+    raise RuntimeError(f"cannot build the CUDA kernels: neither {BUILD_DIR} nor {cache_dir()} "
+                       "can be written")
+
+
 def _lib_path() -> Path:
-    return BUILD_DIR / f"libocm_kernels_{source_hash()}.so"
+    """The library of the present sources: where ``BUILD_DIR`` or
+    :func:`cache_dir` already holds it (a read-only one too), else in
+    :func:`build_dir`."""
+    name = f"libocm_kernels_{source_hash()}.so"
+    for d in (BUILD_DIR, cache_dir()):
+        if (d / name).exists():
+            return d / name
+    return build_dir() / name
 
 
 def built() -> bool:
-    """Whether the library of the present sources is built."""
-    return _lib_path().exists()
+    """Whether the library of the present sources is built (False where it
+    is not and nothing can be written)."""
+    try:
+        return _lib_path().exists()
+    except RuntimeError:
+        return False
 
 
 def build(verbose: bool = False) -> Path:
@@ -108,9 +152,9 @@ def build(verbose: bool = False) -> Path:
     lib = _lib_path()
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         objs, cmds = [], []
         for src in _sources():
             if src.suffix != ".cu":

@@ -305,7 +305,11 @@ class StandaloneScopeMixin:
     where each cm_source owns a texrender/staging pipeline,
     src/common.c:430-454)."""
 
-    def attach_private_hub(self, capture: CaptureConfig, device) -> CaptureHub:
+    def attach_private_hub(self, capture: CaptureConfig, device=None) -> CaptureHub:
+        """A hub of the scope's own, on ``device`` (None: the device of the
+        hub the scope has, else "cuda")."""
+        if device is None:
+            device = self._hub.device if getattr(self, "_hub", None) is not None else "cuda"
         hub = CaptureHub(ROIConfig(target_scale=capture.target_scale,
                                    colorspace=capture.colorspace, interleave=0), device)
         hub.register(self)  # type: ignore[arg-type]

@@ -11,20 +11,46 @@ different Pallas kernel; here it is the same K1 + K2 launches, so it needs
 no branch of its own.  A dynamic rect (``rect_dyn``) goes to K2, which
 reads it on the device: K1 has no statistics here, so it needs none.
 
-The port has no backend switch: the input's device picks the route, as in
-every kernel wrapper (a CPU tensor runs the plain versions).
+The input's device picks the route, as in every kernel wrapper: a CUDA
+tensor launches the kernels, a CPU tensor runs their plain versions.
+``backend`` names that route for JAX's callers and never picks another
+(:func:`default_backend`); a host array goes to the device of the route it
+names, or to the default device.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .convert import packed_view
 from .pipeline import frame_pass, stats_inputs
 from .scope_stats import histogram_from_waveform, vs_wv_counts
 from .stats import saturate_u8
+
+
+# device type -> the route its tensors take, under JAX's backend names
+_ROUTES = {"cuda": "pallas", "cpu": "xla"}
+
+
+def default_backend() -> str:
+    """The route a tensor on the default device takes, under JAX's names
+    (``ops/fused.py:39-42``): ``"pallas"`` (the hand-written CUDA kernels)
+    when a CUDA GPU is available, else ``"xla"`` (their plain PyTorch
+    versions).  It reports the route; the input's device picks it, and a
+    host array goes to the default device."""
+    return "pallas" if torch.cuda.is_available() else "xla"
+
+
+def _host_array_device(backend: str | None) -> str:
+    """Where a host array goes: the device of the route ``backend`` names,
+    the default device (a CUDA GPU when there is one) without it.  An
+    unknown name leaves it on the CPU, where :func:`analyze` refuses it."""
+    if backend is None:
+        backend = default_backend()
+    return {route: dev for dev, route in _ROUTES.items()}.get(backend, "cpu")
 
 
 class AnalysisResult(NamedTuple):
@@ -40,7 +66,7 @@ class AnalysisResult(NamedTuple):
     wv_yuv: torch.Tensor | None
     hi_rgb: torch.Tensor | None  # (3, 256) int32
     hi_yuv: torch.Tensor | None
-    planes: torch.Tensor  # the scaled/cropped frame (4, h, w), always kept
+    planes: torch.Tensor | None  # the scaled/cropped frame (4, h, w)
 
 
 def analyze(
@@ -53,15 +79,26 @@ def analyze(
     need_wv_yuv: bool = False,
     need_hi_rgb: bool = False,
     need_hi_yuv: bool = False,
+    keep_rgba: bool = True,
+    backend: str | None = None,
     is_planar: bool = False,
+    is_packed: bool = False,
+    tm=None,
     rect_dyn=None,
 ) -> AnalysisResult:
     """One pass: downscale -> crop -> convert -> statistics.
 
     frame: (H, W, 4) u8 RGBA or its (H, W) int32/uint32 packed view (the
-    frame's shape tells them apart), or (4, H, W) planar with
-    ``is_planar``.  ``rect`` is the ROI (x0, y0, x1, y1) in scaled
-    coordinates.  ``planes`` always holds the scaled (cropped) frame.
+    frame's shape tells them apart; ``is_packed`` requires the packed
+    view), or (4, H, W) planar with ``is_planar``; a host array goes to the
+    device of the route ``backend`` names, without it to the default device
+    (a CUDA GPU when there is one).  ``rect`` is the ROI (x0, y0, x1, y1) in scaled
+    coordinates.  ``planes`` holds the scaled (cropped) frame, or None
+    without ``keep_rgba``.  ``backend`` names the route of the frame's
+    device (``"pallas"`` for a CUDA tensor, ``"xla"`` for a CPU tensor,
+    None for either); any other value or pairing raises.  ``tm``, a float or a 0-d
+    tensor, changes no result (JAX threads its clock through its kernel);
+    it is never read on the host.
 
     ``rect_dyn`` is a dynamic ROI in scaled coordinates, a (4,) integer
     tensor on the frame's device (exclusive with ``rect``): the statistics
@@ -73,6 +110,18 @@ def analyze(
     """
     if rect is not None and rect_dyn is not None:
         raise ValueError("rect and rect_dyn are mutually exclusive")
+    if not isinstance(frame, torch.Tensor):
+        frame = torch.as_tensor(np.asarray(frame), device=_host_array_device(backend))
+    if backend is not None and _ROUTES.get(frame.device.type) != backend:
+        raise ValueError(
+            f"backend={backend!r} on a {frame.device} tensor: the frame's device picks the "
+            "route ('pallas', the CUDA kernels, for a CUDA tensor; 'xla', their plain "
+            "versions, for a CPU tensor)")
+    if is_packed and (is_planar or frame.ndim != 2):
+        raise ValueError(f"is_packed needs the (H, W) packed view, got shape "
+                         f"{tuple(frame.shape)}{' with is_planar' if is_planar else ''}")
+    if isinstance(tm, torch.Tensor) and tm.ndim != 0:
+        raise ValueError(f"tm must be a float or a 0-d tensor, got shape {tuple(tm.shape)}")
     # an (H, W, 4) u8 frame goes to K1 as its packed view, without a copy
     x = frame if is_planar else packed_view(frame)
     ds, yuv, _, _, _ = frame_pass(x, packed=not is_planar, cs=int(cs), scale=int(scale),
@@ -114,5 +163,5 @@ def analyze(
         wv_yuv=wv(True, need_wv_yuv),
         hi_rgb=hi(False, need_hi_rgb),
         hi_yuv=hi(True, need_hi_yuv),
-        planes=ds,
+        planes=ds if keep_rgba else None,
     )

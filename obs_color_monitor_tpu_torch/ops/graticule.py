@@ -257,12 +257,14 @@ def falsecolor_key_overlay(
     width: int,
     height: int,
     cs: Colorspace,
+    lut_key: tuple | None = None,
     lut: np.ndarray | None = None,
 ) -> np.ndarray | None:
     """Key-legend overlay at the final output size (reference src/zebra.c:385-597).
 
     Background box, the false-colored gradient bar, and 0..100 labels every
-    10% along the bar.  Returns RGBA (H', W', 4) or None.
+    10% along the bar.  Returns RGBA (H', W', 4) or None.  ``lut_key``
+    (JAX's cache key of the LUT) does not change the drawing; ``lut`` does.
     """
     show_key = ShowKey(show_key)
     if show_key == ShowKey.NONE:

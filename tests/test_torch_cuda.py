@@ -379,6 +379,30 @@ def test_fast_forms_taken_at_main_path_shapes(cuda):
     assert ss.vs_wv_counts.launches_vec == k2 + 1
 
 
+@pytest.mark.parametrize("packed", [False, True])
+def test_analyze_host_array_runs_on_the_card(cuda, packed):
+    """A host array given to ``analyze`` without ``backend``, or with
+    ``backend=default_backend()``, runs K1 and K2 on the card, equal to the
+    tensor's call; with ``backend="xla"`` it runs on the CPU, equal too."""
+    from obs_color_monitor_tpu_torch.ops.fused import analyze, default_backend
+
+    f = _kind_frame(131, 270, "random", 5)
+    host = f.view(np.int32)[..., 0] if packed else f
+    kw = dict(cs=2, scale=2, need_vs=True, need_wv_rgb=True, need_hi_yuv=True)
+    want = analyze(torch.from_numpy(np.ascontiguousarray(host)).to(cuda), **kw)
+    assert default_backend() == "pallas"
+    for extra in ({}, dict(backend=default_backend())):
+        launches = (tp.frame_pass.launches, ss.vs_wv_counts.launches)
+        got = analyze(host, **kw, **extra)
+        assert (tp.frame_pass.launches, ss.vs_wv_counts.launches) == (launches[0] + 1,
+                                                                       launches[1] + 2)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or (a.device == b.device and torch.equal(a, b))
+    cpu = analyze(host, backend="xla", **kw)
+    for a, b in zip(cpu, want):
+        assert (a is None and b is None) or (a.device.type == "cpu" and torch.equal(a, b.cpu()))
+
+
 @pytest.mark.parametrize("h,w,off", [(68, 144, 0), (68, 144, 1), (68, 132, 0), (70, 130, 0),
                                      (1080, 1920, 5)])
 def test_k3_forms_and_single_outputs(cuda, h, w, off):

@@ -48,7 +48,15 @@ any failure raises and the exit code is non-zero:
    static and dynamic dock steps, the settled Dock) at tm = 1.0 and 4.0,
    each replay equal to ``step.eager`` and to the CPU, the zebra differing
    between the clocks and an earlier result unchanged by a later call; the
-   overlay scopes' filter flavour ``apply(frame)`` on an interleaved 4K
+   same captured steps fed host arrays as the JAX package's callers pass
+   them (a numpy u32 4K packed frame with an ``np.float32`` clock through
+   the full step, numpy NV12 and P010 pairs through the dock step with
+   focus peaking, a numpy int32 rect and a tuple of ``np.int64`` through
+   the dynamic dock step, a numpy (2, H, W) batch with numpy clocks
+   through the batched step), each output equal byte for byte to the
+   tensor call's, the same launches, no second graph, and the host-fed
+   replay, the tensor-fed replay and the host-to-device copy alone timed
+   by CUDA events; the overlay scopes' filter flavour ``apply(frame)`` on an interleaved 4K
    frame (Zebra, FalseColor plain, with a LUT and with its key beside the
    image, FocusPeaking at two thresholds) equal to the CPU, K3 once a call
    but for the LUT; ``ops.fused.analyze`` with the JAX package's keywords
@@ -1036,6 +1044,119 @@ def phase_captured(device, h=H4K, w=W4K, roi=ROI) -> dict:
     print(f"{name}: the replays equal the eager stream step and the CPU Dock at tm {CLOCKS}, "
           "the panels differ between them, an earlier panel is unchanged", flush=True)
     by_path[name] = counts
+    return by_path
+
+
+def host_twin(a, device):
+    """The tensor call's argument for a host argument: a frame or plane on
+    ``device`` (a u32 frame as its int32 view), a clock as a Python float,
+    a rect as an int32 tensor."""
+    import torch
+
+    if isinstance(a, tuple) and all(isinstance(v, np.ndarray) for v in a):
+        return tuple(host_twin(v, device) for v in a)
+    if isinstance(a, tuple):
+        return torch.tensor([int(v) for v in a], dtype=torch.int32, device=device)
+    if isinstance(a, np.ndarray) and a.ndim == 1 and a.dtype.kind == "i":
+        return torch.tensor(a.tolist(), dtype=torch.int32, device=device)
+    if isinstance(a, np.ndarray):
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(device)
+    return float(a)
+
+
+def host_args_paths(h: int, w: int, roi) -> list:
+    """(name, builder, calls, kernels) of each captured step fed host
+    arrays; ``calls`` are the host argument tuples, in order, made to one
+    step (the dynamic step takes its rect in two host forms)."""
+    from obs_color_monitor_tpu_torch import (
+        DockConfig, make_batched_step, make_dock_step, make_full_step)
+
+    all6 = DockConfig(show_focuspeaking=True)
+    packed = make_frame(h, w, "random", 1300).view(np.uint32)[..., 0]
+    nv12, p010 = make_nv12(h, w, 1301), make_nv12(h, w, 1302, 10, True)
+    batch = np.stack([make_frame(h, w, "random", 1303 + i).view(np.uint32)[..., 0]
+                      for i in range(2)])
+    clock = np.float32(1.0)
+
+    def dock(**kw):
+        return lambda d: make_dock_step(h, w, scale=2, dock=all6, device=d, **kw)
+
+    return [
+        ("host full_step packed", lambda d: make_full_step(
+            h, w, scale=2, input_format="packed", device=d), [(packed, clock)], ("K1", "K2")),
+        ("host dock nv12", dock(input_format="nv12"), [(nv12, clock)],
+         ("K1", "K2", "K3", "K4")),
+        ("host dock p010", dock(input_format="nv12", nv12_shift=8), [(p010, clock)],
+         ("K1", "K2", "K3", "K5")),
+        ("host dock nv12 dynamic_roi", dock(input_format="nv12", dynamic_roi=True),
+         [(nv12, clock, np.asarray(roi, np.int32)),
+          (nv12, clock, tuple(np.int64(v) for v in roi))],
+         ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect")),
+        ("host batched packed B=2", lambda d: make_batched_step(
+            h, w, scale=2, input_format="packed", device=d),
+         [(batch, np.asarray([0.0667, 1.3167], np.float32))], ("K1", "K2")),
+    ]
+
+
+def phase_host_args(device, card: str = "", h=H4K, w=W4K, roi=ROI) -> dict:
+    """Each captured step fed host arrays (:func:`host_args_paths`): the
+    step is captured with the tensor call's arguments, then every output
+    of each host call equals the tensor call's byte for byte and lies on
+    ``device``, each host call launches what the tensor call launches
+    (K1-K5 as the path needs them, counts read around each call alone), and
+    no host call captures a second graph.  On a card, CUDA events time the
+    4K host-fed replay against the tensor-fed one and the host-to-device
+    copy of the frame alone, for the full step and the NV12 dock step."""
+    import torch
+
+    by_path, steps = {}, {}
+    paths = host_args_paths(h, w, roi)
+    for name, build, calls, needs in paths:
+        step = build(device)
+        steps[name] = (step, calls[0])
+        total = dict.fromkeys(read_counts(), 0)
+        for host in calls:
+            dev = tuple(host_twin(a, device) for a in host)
+            step(*dev)  # the capture, from the tensor call
+            graphs = step.graphs
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            reset_counts()
+            want = step(*dev)
+            tensor_counts = read_counts()
+            reset_counts()
+            got = step(*host)
+            counts = read_counts()
+            if any(v.device.type != device.type for v in got if v is not None):
+                raise AssertionError(f"{name}: a host call left {device}")
+            compare_fields(f"{name} host call vs the tensor call", host_fields(got),
+                           host_fields(want))
+            if counts != tensor_counts:
+                raise AssertionError(f"{name}: the host call launched {counts}, the tensor "
+                                     f"call {tensor_counts}")
+            if step.graphs != graphs or (device.type == "cuda" and graphs != 1):
+                raise AssertionError(f"{name}: {step.graphs} graphs after the host call, "
+                                     f"{graphs} before")
+            total = {k: v + counts[k] for k, v in total.items()}
+        by_path[name] = path_counts(name, total, needs, device)
+        print(f"{name}: {len(calls)} host call(s) equal to the tensor call byte for byte, the "
+              f"same launches, {step.graphs} graph(s)", flush=True)
+    if device.type != "cuda":
+        return by_path
+    for name in ("host full_step packed", "host dock nv12"):
+        step, host = steps[name]
+        dev = tuple(host_twin(a, device) for a in host)
+        frame = host[0] if isinstance(host[0], tuple) else (host[0],)
+        planes = tuple(torch.from_numpy(p.view(np.int32) if p.dtype == np.uint32 else p)
+                       for p in frame)
+        bufs = tuple(torch.empty_like(p, device=device) for p in planes)
+        t = time_ms({"host": lambda: step(*host), "tensor": lambda: step(*dev),
+                     "h2d": lambda: [b.copy_(p) for b, p in zip(bufs, planes)]})
+        nbytes = sum(p.numel() * p.element_size() for p in planes)
+        print(f"host_args timing {name} {h}x{w}: ms per frame host-fed {t['host']!r}, "
+              f"tensor-fed {t['tensor']!r}, H2D copy alone {t['h2d']!r} ({nbytes} bytes from "
+              f"pageable memory), the copy's share of the host-fed frame "
+              f"{t['h2d'] / t['host']!r}; {card}", flush=True)
     return by_path
 
 
@@ -2798,6 +2919,7 @@ def main() -> int:
     by_path = {**phase_main_path(device), **phase_dock_paths(device),
                **phase_ingest_path(device), **phase_dynamic_dock(device),
                **phase_stream_dock(device), **phase_captured(device),
+               **phase_host_args(device, card),
                **phase_scope_apply(device), **phase_analyze_keywords(device),
                **phase_batched(device), **phase_driver_dock(device)}
     cli_counts, cli_pngs = phase_cli(device)

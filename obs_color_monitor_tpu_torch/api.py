@@ -10,6 +10,12 @@ hi_max, levels, renders), all captured once as a CUDA graph and replayed
 (``graphs.py``, the counterpart of ``@jax.jit``).  The batched step runs
 each kernel once for the whole batch.  On the CPU the same steps run the
 kernels' plain versions, uncaptured.
+
+A step takes what the JAX step takes: tensors on its device, or host
+arrays (numpy, JAX, anything ``np.asarray`` takes), copied to the device
+by the port's one conversion (``ops.convert._as_device_arg``; a captured
+step copies them straight into its graph's input buffers).  A host array
+never moves a step off its device.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from .config import (
 )
 from .golden.reference import peaking_threshold_fixed
 from .ops import render as render_ops
-from .ops.convert import nv12_to_packed, packed_view, planarize_packed
+from .ops.convert import _as_device_arg, nv12_to_packed, packed_view, planarize_packed
 from .ops.overlays import falsecolor_lut_planes
 from .ops.pipeline import frame_pass, stats_inputs
 from .ops.scope_stats import histogram_from_waveform, vs_wv_counts
@@ -70,15 +76,13 @@ def frame_from_numpy(arr, input_format: str, device):
     """A host frame as the step's input on ``device``: ``rgba`` (H, W, 4)
     u8, ``packed`` (H, W) u32 or int32 (held as int32), ``planar``
     (4, H, W) u8, ``nv12`` a (y, uv) pair of u8 or u16 planes (a pair of
-    tensors)."""
+    tensors).  A step takes the host frame as well; this is the copy it
+    makes."""
     if input_format not in INPUT_FORMATS:
         raise ValueError(f"unknown input_format {input_format!r}")
     if input_format == "nv12":
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arr)
-    arr = np.ascontiguousarray(arr)
-    if input_format == "packed" and arr.dtype == np.uint32:
-        arr = arr.view(np.int32)
-    return torch.from_numpy(arr).to(device)
+        return tuple(_as_device_arg(a, device) for a in arr)
+    return _as_device_arg(arr, device)
 
 
 def _step_parts(
@@ -200,14 +204,17 @@ def _step_parts(
 
 
 def _check_frame(frame, input_format: str, frame_shape: tuple, device, lead: tuple = ()):
-    """Raise unless the step's input lies on ``device`` with ``lead`` +
-    ``frame_shape`` (the y plane's, for NV12)."""
-    planes = frame if input_format == "nv12" else (frame,)
+    """The step's input on ``device`` (a host array copied there); raise
+    unless a tensor lies there and the input has ``lead`` + ``frame_shape``
+    (the y plane's, for NV12)."""
+    planes = tuple(frame) if input_format == "nv12" else (frame,)
+    planes = tuple(_as_device_arg(t, device) for t in planes)
     for t in planes:
         check_device(t, device)
     if tuple(planes[0].shape) != (*lead, *frame_shape):
         raise ValueError(f"{input_format} frame must be {(*lead, *frame_shape)}, got "
                          f"{tuple(planes[0].shape)}")
+    return planes if input_format == "nv12" else planes[0]
 
 
 def make_full_step(
@@ -229,8 +236,9 @@ def make_full_step(
     """Build a (frame, tm) -> ScopeOutputs step for a fixed frame shape.
 
     Statistics run on the ``scale``-downscaled frame (any integer scale);
-    overlays run at full resolution.  ``device`` is where the step runs
-    and where its frames must already be.  input_format:
+    overlays run at full resolution.  ``device`` is where the step runs.
+    A frame is a tensor on ``device`` or a host array (numpy, JAX), which
+    the step copies there; a tensor on another device raises.  input_format:
 
       * "rgba"   — (H, W, 4) u8, read as its packed view (no copy);
       * "packed" — the (H, W) 32-bit view of the RGBA bytes, int32 or
@@ -241,8 +249,9 @@ def make_full_step(
         ``nv12_shift`` > 0, P010-family u16 planes, round-shifted to 8 bits
         in the same decode (``ops.convert.nv12_shift``).
 
-    ``tm`` is the zebra stripe clock, a Python float or a 0-d float32
-    tensor on ``device`` (the kernels read it from device memory).
+    ``tm`` is the zebra stripe clock: a Python or numpy number, a 0-d
+    host array, or a 0-d float32 tensor on ``device`` (the kernels read it
+    from device memory).
 
     On a CUDA device the step is captured as a CUDA graph on its first call
     and replayed after (``graphs.CapturedStep``; one program per frame, as
@@ -257,8 +266,7 @@ def make_full_step(
         focuspeaking, input_format, nv12_shift, device=device)
 
     def step(frame, tm) -> ScopeOutputs:
-        _check_frame(frame, input_format, frame_shape, device)
-        x = decode(frame)
+        x = decode(_check_frame(frame, input_format, frame_shape, device))
         return glue(x, *kernels(x, tm))
 
     return captured(step, device)
@@ -272,7 +280,8 @@ def make_batched_step(height: int, width: int, mesh=None, *, device=None, **kwar
     ``kwargs`` are :func:`make_full_step`'s.  ``frames`` is a batch in the
     step's input format: (B, H, W, 4) u8 rgba, (B, H, W) packed, (B, 4, H, W)
     planar, or an NV12/P010 pair ((B, H, W), (B, H/2, W)); ``tms`` a (B,)
-    float32 tensor on the step's device, frame b's zebra clock.  K4/K5, K1
+    float32 array, frame b's zebra clock.  Each is a tensor on the step's
+    device or a host array, copied there.  K4/K5, K1
     and K2 each run once for the whole batch (the batch is their grid's
     frame axis, as ``vmap`` adds a grid axis to a ``pallas_call``); the glue
     runs frame by frame.  Frame b's outputs equal the full step's on frame
@@ -302,14 +311,16 @@ def make_batched_step(height: int, width: int, mesh=None, *, device=None, **kwar
         height, width, device=device, **kwargs)
 
     def step(frames, tms) -> ScopeOutputs:
-        lead = frames[0] if input_format == "nv12" else frames
-        if lead.ndim != len(frame_shape) + 1 or lead.shape[0] < 1:
+        lead = np.shape(frames[0] if input_format == "nv12" else frames)
+        if len(lead) != len(frame_shape) + 1 or lead[0] < 1:
             raise ValueError(f"frames must be (B, {', '.join(map(str, frame_shape))}), got "
-                             f"{tuple(lead.shape)}")
-        b = lead.shape[0]
-        _check_frame(frames, input_format, frame_shape, device, (b,))
-        if not isinstance(tms, torch.Tensor) or tuple(tms.shape) != (b,):
-            raise ValueError(f"tms must be a ({b},) float32 tensor")
+                             f"{tuple(lead)}")
+        b = lead[0]
+        frames = _check_frame(frames, input_format, frame_shape, device, (b,))
+        tms = _as_device_arg(tms, device)
+        if tuple(tms.shape) != (b,) or tms.dtype != torch.float32:
+            raise ValueError(f"tms must be a ({b},) float32 array, got {tuple(tms.shape)} "
+                             f"{tms.dtype}")
         x = decode(frames)
         parts = kernels(x, tms)
         outs = [glue(x[i], *(t[i] for t in parts)) for i in range(b)]

@@ -41,6 +41,7 @@ from .golden.reference import peaking_threshold_fixed
 from .ops import render as render_ops
 from .ops.convert import (
     OPAQUE_BLACK,
+    _as_device_arg,
     clamp_rect,
     nv12_to_packed,
     packed_view,
@@ -189,7 +190,11 @@ def compose_vstack(patches: list, out_w: int, out_h: int) -> torch.Tensor:
     are padded to full-width row bands on their int32 pixel view and
     concatenated; anything else (a panel too short for its scope count,
     whose slots overlap) takes the update-slice loop, which clips like the
-    reference draw and keeps its last-drawn-wins order."""
+    reference draw and keeps its last-drawn-wins order.  A host patch goes
+    to the first patch's device (the default device for the first)."""
+    if patches:
+        first = _as_device_arg(patches[0][2])
+        patches = [(x0, y0, _as_device_arg(p, first.device)) for x0, y0, p in patches]
     dev = patches[0][2].device if patches else torch.device("cpu")
     stackable = all(
         b[1] >= a[1] + a[2].shape[0] for a, b in zip(patches, patches[1:])
@@ -271,8 +276,10 @@ def make_dock_step(
     device="cuda",
 ):
     """Build the dock step ``(frame, tm) -> DockStepOutput`` for a fixed
-    frame shape, running on ``device`` (its frames must be there already);
-    with ``dynamic_roi`` the step is ``(frame, tm, rect)``.
+    frame shape, running on ``device``; with ``dynamic_roi`` the step is
+    ``(frame, tm, rect)``.  A frame or plane is a tensor on ``device`` or a
+    host array (numpy, JAX), which the step copies there; a tensor on
+    another device raises.
 
     input_format "rgba" takes an (H, W, 4) u8 frame or its (H, W) int32 /
     uint32 packed view; "nv12" takes a ``(y (H, W), uv (H/2, W))`` pair of
@@ -282,11 +289,12 @@ def make_dock_step(
     reference dock) runs the overlays on the scaled, cropped capture; False
     runs them on the full-resolution frame.  ``roi_rect`` is a static ROI
     (x0, y0, x1, y1) in scaled coordinates.  ``tm`` is the zebra stripe
-    clock, a Python float or a 0-d float32 tensor on ``device`` (K3 reads
-    it from device memory).
+    clock: a Python or numpy number, a 0-d host array, or a 0-d float32
+    tensor on ``device`` (K3 reads it from device memory).
 
     ``dynamic_roi=True`` takes the ROI per frame as ``rect``, a (4,) int32
-    tensor on ``device`` in scaled coordinates, clamped as
+    tensor on ``device`` or a host rect (four Python or numpy ints, a (4,)
+    integer array) in scaled coordinates, clamped as
     :func:`ops.convert.clamp_rect` says: the statistics and the overlay
     slots equal the static ``roi_rect`` build's at the same rect, the
     waveform counts stay full-width with the columns outside the rect zero,
@@ -298,9 +306,8 @@ def make_dock_step(
 
     On a CUDA device the returned step is captured as a CUDA graph on its
     first call and replayed after (``graphs.CapturedStep``): each call
-    copies the frame, ``tm`` and the rect into the graph's buffers (the
-    captured dynamic step also takes the rect as 4 host ints, written with
-    ``fill_``) and returns fresh outputs.  ``step.eager`` is the uncaptured
+    copies the frame, ``tm`` and the rect into the graph's buffers (a host
+    rect as 4 ints written with ``fill_``) and returns fresh outputs.  ``step.eager`` is the uncaptured
     step; ``step.rects`` and ``step.dims`` are the static layout.
     """
     from .graphs import captured
@@ -447,13 +454,15 @@ def make_dock_step(
         return vs_counts, wv_raw, hi_raw
 
     def source(frame) -> torch.Tensor:
-        """The frame's packed view on the device, decoded from NV12/P010."""
+        """The frame's packed view on the device, decoded from NV12/P010; a
+        host frame or plane is copied to the device first."""
         if input_format == "nv12":
-            y, uv = frame
+            y, uv = (_as_device_arg(p, device) for p in frame)
             check_device(y, device)
             if tuple(y.shape) != frame_shape:
                 raise ValueError(f"nv12 y plane must be {frame_shape}, got {tuple(y.shape)}")
             return nv12_to_packed(y, uv, cs=dec_cs, shift=nv12_shift)
+        frame = _as_device_arg(frame, device)
         check_device(frame, device)
         if tuple(frame.shape[:2]) != frame_shape:
             raise ValueError(f"frame must be {frame_shape} (+ 4 bytes), got "
@@ -509,9 +518,10 @@ def make_dock_step(
 
         def step_dyn(frame, tm: float, rect: torch.Tensor) -> DockStepOutput:
             src = source(frame)
+            rect = _as_device_arg(rect, device)
             check_device(rect, device)
             if rect.dtype != torch.int32 or rect.shape != (4,):
-                raise ValueError(f"rect must be a (4,) int32 tensor, got {tuple(rect.shape)} "
+                raise ValueError(f"rect must be a (4,) int32 array, got {tuple(rect.shape)} "
                                  f"{rect.dtype}")
             res = analyze(
                 src, cs=csi, scale=scale, need_vs=need_vs,

@@ -109,7 +109,7 @@ def main(argv=None) -> int:
         frames = rng.integers(0, 256, (b, h, w, 4), dtype=np.uint8)
         frames[..., 3] = 255
         step = make_batched_step(h, w, mesh=mesh, cs=Colorspace.BT709, scale=2)
-        out = step(torch.from_numpy(frames).to(dev), torch.zeros(b, device=dev))
+        out = step(frames, np.zeros(b, np.float32))  # host arrays, copied to this rank's card
         occupied = [int((v > 0).sum()) for v in out.vs_counts.cpu().numpy()]
         print(f"host {r}/{n}: {dev}, batch {b} local of {b * n} global, vectorscope occupied "
               f"bins per local stream: {occupied}", flush=True)

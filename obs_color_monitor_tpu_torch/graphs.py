@@ -11,14 +11,20 @@ launch.
 
 What a captured step does on a CUDA device:
 
-* it owns static input buffers, one per argument: a tensor (a frame, a
+* it owns static input buffers, one per argument, and takes the arguments
+  the JAX steps take (:func:`_host_arg` sorts them): a tensor (a frame, a
   plane of an NV12 pair, a rect, a batch of clocks) is copied into its
-  buffer device to device; a Python number (the zebra clock ``tm``) is
-  written into a 0-d float32 buffer with ``fill_`` and a sequence of Python
-  ints (a rect) into an int32 buffer element by element, also with
-  ``fill_``, which passes each value as a kernel argument: nothing is
-  copied from host memory.  A float and a 0-d float32 tensor share a
-  buffer, and so do a host rect and a (4,) int32 tensor;
+  buffer device to device; a host array (numpy, JAX) is copied into it
+  from host memory, straight, as ``ops.convert._as_device_arg`` would make
+  it (a uint32 frame as its int32 view), so it shares the graph of its
+  tensor twin; a number (the zebra clock ``tm``: a Python or numpy number,
+  a 0-d array) is written into a 0-d float32 buffer with ``fill_``, and a
+  host rect (a sequence of Python or numpy ints, a 1-d integer array) into
+  an int32 buffer element by element, also with ``fill_``, which passes
+  each value as a kernel argument: neither is copied from host memory.  A
+  number and a 0-d float32 tensor share a buffer, and so do a host rect
+  and a (4,) int32 tensor; a tuple of planes (an NV12 pair) is a tuple of
+  buffers;
 * on the first call with a new signature (the shapes and dtypes of the
   arguments) it runs the step twice on a side stream (the warm-up, which
   builds the kernels and every cached constant), then captures one call
@@ -35,8 +41,10 @@ What a captured step does on a CUDA device:
   replay adds them.  The warm-up and the capture are set-up: the counters
   are restored after them, and they count only the replays' launches.
 
-On the CPU the step runs as it is, uncaptured (a host rect becomes an int32
-tensor first).  ``step.eager`` is the uncaptured function on any device.
+On the CPU the step runs uncaptured on the same arguments placed on the
+CPU (a host array as its tensor, a host rect as an int32 tensor, a number
+as a float).  ``step.eager`` is the uncaptured function on any device.
+A host argument never moves a step off its device.
 """
 
 from __future__ import annotations
@@ -44,9 +52,11 @@ from __future__ import annotations
 import collections
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .api import check_device
+from .ops.convert import _as_device_arg, _host_array
 
 
 def _counters() -> list:
@@ -66,23 +76,60 @@ def _read_counters(counters) -> list[int]:
     return [getattr(obj, name) for obj, name in counters]
 
 
+def _is_number(v) -> bool:
+    return isinstance(v, (int, float, np.integer, np.floating)) and not isinstance(v, bool)
+
+
 def _is_int_seq(a) -> bool:
-    return isinstance(a, (tuple, list)) and all(
-        isinstance(v, int) and not isinstance(v, bool) for v in a)
+    return isinstance(a, tuple) and all(isinstance(v, int) for v in a)
+
+
+def _host_arg(a):
+    """One step argument in the form the buffers take: a tensor as it is; a
+    number or a 0-d numeric array as a float (a clock); a sequence of
+    integers or a 1-d integer array as a tuple of ints (a rect); a
+    sequence of arrays (an NV12 pair) as a tuple of these forms; any other
+    array-like as ``_host_array``'s numpy array.  ``TypeError`` for
+    anything else."""
+    if isinstance(a, torch.Tensor):
+        return a
+    if isinstance(a, (tuple, list)) and not all(_is_number(v) for v in a):
+        return tuple(_host_arg(x) for x in a)
+    if _is_number(a):
+        return float(a)
+    arr = _host_array(a)
+    if arr.ndim == 0:
+        return float(arr)
+    if arr.ndim == 1 and arr.dtype.kind in "iu":
+        return tuple(int(v) for v in arr.tolist())
+    return arr
 
 
 def _spec(a):
-    """The signature of one argument: ("t", shape, dtype) for what becomes
-    one buffer, ("seq", specs) for a tuple of tensors (an NV12 pair)."""
+    """The signature of one argument in :func:`_host_arg`'s form: ("t",
+    shape, dtype) for what becomes one buffer, ("seq", specs) for a tuple
+    of planes (an NV12 pair)."""
     if isinstance(a, torch.Tensor):
         return ("t", tuple(a.shape), a.dtype)
-    if isinstance(a, (int, float)) and not isinstance(a, bool):
+    if isinstance(a, np.ndarray):
+        return ("t", a.shape, torch.from_numpy(a).dtype)
+    if isinstance(a, float):
         return ("t", (), torch.float32)
     if _is_int_seq(a):
         return ("t", (len(a),), torch.int32)
-    if isinstance(a, (tuple, list)) and all(isinstance(x, torch.Tensor) for x in a):
-        return ("seq", tuple(_spec(x) for x in a))
-    raise TypeError(f"a captured step takes tensors, numbers and int sequences, got {type(a)}")
+    return ("seq", tuple(_spec(x) for x in a))
+
+
+def _on_device(a, device):
+    """One argument in :func:`_host_arg`'s form as the uncaptured step
+    takes it on ``device``."""
+    if isinstance(a, float):
+        return a
+    if _is_int_seq(a):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+    if isinstance(a, tuple):
+        return tuple(_on_device(x, device) for x in a)
+    return _as_device_arg(a, device)
 
 
 def _buffer(spec, device):
@@ -96,7 +143,9 @@ def _fill(buf, a, device) -> None:
     if isinstance(a, torch.Tensor):
         check_device(a, device)
         buf.copy_(a)
-    elif isinstance(a, (int, float)):
+    elif isinstance(a, np.ndarray):
+        buf.copy_(torch.from_numpy(a))
+    elif isinstance(a, float):
         buf.fill_(a)
     elif _is_int_seq(a):
         for i, v in enumerate(a):
@@ -136,9 +185,9 @@ class CapturedStep:
         self._graphs: collections.OrderedDict = collections.OrderedDict()
 
     def __call__(self, *args):
+        args = tuple(_host_arg(a) for a in args)
         if self.device.type != "cuda":
-            return self.eager(*(torch.tensor(a, dtype=torch.int32, device=self.device)
-                                if _is_int_seq(a) else a for a in args))
+            return self.eager(*(_on_device(a, self.device) for a in args))
         key = tuple(_spec(a) for a in args)
         entry = self._graphs.get(key)
         if entry is None:

@@ -27,7 +27,13 @@ import torch
 from ..api import check_device
 from ..colorspace import Colorspace, calc_colorspace
 from ..config import CaptureConfig, ROIConfig
-from ..ops.convert import host_packed_view, nv12_device_planes, nv12_to_packed, planes_to_rgba
+from ..ops.convert import (
+    _as_device_arg,
+    host_packed_view,
+    nv12_device_planes,
+    nv12_to_packed,
+    planes_to_rgba,
+)
 from ..ops.fused import AnalysisResult, analyze
 
 _MISS = object()
@@ -223,17 +229,14 @@ class CaptureHub:
 
     def to_device(self, frame, is_planar: bool = False) -> torch.Tensor:
         """A frame on the hub's device: a host (H, W, 4) u8 frame crosses as
-        its (H, W) int32 packed view (the same bytes, one copy); a tensor
+        its (H, W) int32 packed view (the same bytes, one copy), any other
+        host array as ``ops.convert._as_device_arg`` makes it; a tensor
         must already be there."""
-        if isinstance(frame, torch.Tensor):
-            check_device(frame, self.device)
-            return frame
         if not is_planar:
             frame = host_packed_view(frame)
-        frame = np.ascontiguousarray(frame)
-        if frame.dtype == np.uint32:
-            frame = frame.view(np.int32)
-        return torch.from_numpy(frame).to(self.device)
+        frame = _as_device_arg(frame, self.device)
+        check_device(frame, self.device)
+        return frame
 
     def process(self, frame, is_planar: bool = False) -> Optional[SurfaceData]:
         """Analyze one frame and fan out; None if interleave-skipped.

@@ -26,7 +26,7 @@ from ..colorspace import calc_colorspace, quantize_unorm8
 from ..config import FalseColorConfig, FocusPeakingConfig, ShowKey, ZebraConfig
 from ..golden.reference import peaking_threshold_fixed, zebra_tm_advance
 from ..ops import render as render_ops
-from ..ops.convert import planarize, planes_to_rgba
+from ..ops.convert import _as_device_arg, planarize, planes_to_rgba
 from ..ops.fused_overlays import fused_overlays_planes
 from ..ops.graticule import falsecolor_key_overlay, key_canvas_size
 from ..ops.overlays import falsecolor_lut_planes
@@ -88,16 +88,22 @@ class _OverlayScope(Scope, StandaloneScopeMixin):
         (H, W, 4) u8 out, larger where a false-colour key sits beside the
         image.  The frame is planarized, goes through :meth:`apply_planes`
         (K3 on a card) and is interleaved back."""
-        if not isinstance(frame, torch.Tensor):
-            frame = torch.from_numpy(np.ascontiguousarray(frame)).to(self._hub.device)
+        frame = _as_device_arg(frame, self._hub.device)
         check_device(frame, self._hub.device)
         if frame.dtype != torch.uint8 or frame.ndim != 3 or frame.shape[-1] != 4:
             raise ValueError(f"frame must be (H, W, 4) u8, got {tuple(frame.shape)} {frame.dtype}")
         return planes_to_rgba(self.apply_planes(planarize(frame), cs))
 
     def apply_planes(self, planes, cs=None):
-        """Filter flavour on planes: (4, H, W) u8 in, (4, H, W) u8 out."""
-        return self._k3(planes, cs)
+        """Filter flavour on planes: (4, H, W) u8 in (a tensor on the
+        scope's device, or a host array, which is copied there), (4, H, W)
+        u8 out."""
+        return self._k3(self._planes_arg(planes), cs)
+
+    def _planes_arg(self, planes) -> torch.Tensor:
+        planes = _as_device_arg(planes, self._hub.device)
+        check_device(planes, self._hub.device)
+        return planes
 
     def render_image(self):
         v = self._read()
@@ -154,6 +160,7 @@ class FalseColor(_OverlayScope):
         return (a.shape, a.dtype.str, zlib.crc32(a.tobytes()))
 
     def apply_planes(self, planes, cs=None):
+        planes = self._planes_arg(planes)
         cfg = self.config
         cs = calc_colorspace(cfg.colorspace if cs is None else cs)
         if cfg.use_lut and cfg.lut is not None:

@@ -8,6 +8,11 @@ integer rule of the spec directly (``golden/reference.py``,
 package.  A packed frame is the ``(..., H, W)`` 32-bit view of interleaved
 RGBA bytes, held as int32: torch's uint32 has no shifts or arithmetic on
 the CPU, and ``(x >> 8c) & 255`` takes the same bytes from either sign.
+
+Every public function takes what the JAX function takes: a tensor, or a
+host array-like (a numpy array, a JAX array, anything ``np.asarray``
+takes), which :func:`_as_device_arg` copies to the default device (a CUDA
+GPU when there is one).  A tensor stays where it is and picks the route.
 """
 
 from __future__ import annotations
@@ -18,9 +23,43 @@ import torch
 from ..colorspace import FIXED_COEFFS, FIXED_SHIFT, LUMA_COEF, Colorspace
 
 
+def _default_device() -> str:
+    """Where a host array goes without a device named: a CUDA GPU when
+    there is one, else the CPU (``ops.fused.default_backend`` names its
+    route)."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def _host_array(a) -> np.ndarray:
+    """A caller's host array-like as the C-contiguous numpy array a tensor
+    is made from: a uint32 array as its int32 view (the same bytes: torch's
+    uint32 has no arithmetic on the CPU, and the port holds packed frames
+    as int32), every other dtype kept (uint8 planes, uint16 P010 planes,
+    float32 clocks).  A read-only array (a JAX array's host view) is copied
+    first, since a tensor made from it could be written.  ``TypeError`` for
+    what is not numeric data."""
+    arr = np.asarray(a, order="C")
+    if arr.dtype.kind not in "biuf":
+        raise TypeError(f"expected a tensor or a numeric array, got {type(a).__name__} "
+                        f"of dtype {arr.dtype}")
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return arr.view(np.int32) if arr.dtype == np.uint32 else arr
+
+
+def _as_device_arg(a, device=None) -> torch.Tensor:
+    """The port's one conversion of a caller's array: a tensor is returned
+    as it is (the caller checks its device); any other array-like becomes
+    :func:`_host_array`'s array on ``device`` (None: the default device,
+    :func:`_default_device`), one host-to-device copy."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(_host_array(a)).to(_default_device() if device is None else device)
+
+
 def planarize(rgba: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 4) u8 -> (..., 4, H, W) u8 (``convert.planarize``)."""
-    return rgba.movedim(-1, -3).contiguous()
+    return _as_device_arg(rgba).movedim(-1, -3).contiguous()
 
 
 OPAQUE_BLACK = -(1 << 24)  # 0xFF000000 as int32: alpha 255 in the packed view
@@ -55,7 +94,7 @@ def rgba_to_packed(rgba: torch.Tensor) -> torch.Tensor:
 def planarize_packed(x32: torch.Tensor) -> torch.Tensor:
     """(..., H, W) packed RGBA -> (..., 4, H, W) u8; byte 0 (R) is the low
     byte (``convert.planarize_packed``)."""
-    x = as_packed(x32)
+    x = as_packed(_as_device_arg(x32))
     return torch.stack([((x >> k) & 255).to(torch.uint8) for k in (0, 8, 16, 24)], dim=-3)
 
 
@@ -76,7 +115,7 @@ def host_packed_view(frame):
 
 def interleave(planes: torch.Tensor) -> torch.Tensor:
     """(..., C, H, W) -> (..., H, W, C) (``convert.interleave``)."""
-    return planes.movedim(-3, -1)
+    return _as_device_arg(planes).movedim(-3, -1)
 
 
 def planes_to_rgba(planes: torch.Tensor) -> torch.Tensor:
@@ -93,6 +132,7 @@ def rgb_to_yuv_planes(planes: torch.Tensor, cs: int) -> torch.Tensor:
     order; ``clip((K.rgb + O + 2^11) >> 12, 0, 255)`` with ``FIXED_COEFFS``
     (``convert.rgb_to_yuv_planes``)."""
     k = FIXED_COEFFS[Colorspace(cs)].tolist()
+    planes = _as_device_arg(planes)
     r, g, b = _rgb_i32(planes)
     half = 1 << (FIXED_SHIFT - 1)
     outs = [
@@ -119,7 +159,7 @@ def luma_planes(planes: torch.Tensor, cs: int) -> torch.Tensor:
     """Fixed-point luma (scale 255 * 2^12) as int32 (H, W).  The JAX
     function returns the same integers as float32 (``convert.luma_planes``)."""
     kr, kg, kb = luma_coef_fixed(cs)
-    r, g, b = _rgb_i32(planes)
+    r, g, b = _rgb_i32(_as_device_arg(planes))
     return kr * r + kg * g + kb * b
 
 
@@ -138,6 +178,7 @@ def downscale_planes(planes: torch.Tensor, scale: int) -> torch.Tensor:
     the centre 2x2 as ``(a + b + c + d + 2) >> 2``.
     """
     scale = int(scale)
+    planes = _as_device_arg(planes)
     if scale <= 1:
         return planes
     h, w = planes.shape[-2], planes.shape[-1]
@@ -160,6 +201,7 @@ def downscale_planes(planes: torch.Tensor, scale: int) -> torch.Tensor:
 def downscale(rgba: torch.Tensor, scale: int) -> torch.Tensor:
     """Interleaved wrapper of :func:`downscale_planes` (``convert.downscale``);
     scale <= 1 returns the frame as it is."""
+    rgba = _as_device_arg(rgba)
     if scale <= 1:
         return rgba
     return interleave(downscale_planes(planarize(rgba), scale)).contiguous()
@@ -167,12 +209,12 @@ def downscale(rgba: torch.Tensor, scale: int) -> torch.Tensor:
 
 def roi_crop_planes(planes: torch.Tensor, x0: int, y0: int, x1: int, y1: int) -> torch.Tensor:
     """Static ROI sub-rect on planes (``convert.roi_crop_planes``)."""
-    return planes[..., y0:y1, x0:x1]
+    return _as_device_arg(planes)[..., y0:y1, x0:x1]
 
 
 def roi_crop(rgba: torch.Tensor, x0: int, y0: int, x1: int, y1: int) -> torch.Tensor:
     """Static ROI sub-rect, interleaved (``convert.roi_crop``)."""
-    return rgba[..., y0:y1, x0:x1, :]
+    return _as_device_arg(rgba)[..., y0:y1, x0:x1, :]
 
 
 def clamp_rect(rect, w: int, h: int, device=None) -> torch.Tensor:
@@ -221,10 +263,9 @@ def nv12_device_planes(y, uv, device="cuda"):
     ):
         h, w = y.shape
         joint = np.lib.stride_tricks.as_strided(y, shape=(h + uv.shape[0], w), strides=y.strides)
-        dev = torch.from_numpy(joint).to(device)
+        dev = _as_device_arg(joint, device)
         return dev[:h], dev[h:]
-    return (torch.from_numpy(np.ascontiguousarray(y)).to(device),
-            torch.from_numpy(np.ascontiguousarray(uv)).to(device))
+    return _as_device_arg(y, device), _as_device_arg(uv, device)
 
 
 # NV12 -> RGB: limited-range inverse conversion in 12-bit fixed point, the
@@ -282,6 +323,8 @@ def _nv12_rgb_u8(y: torch.Tensor, uv: torch.Tensor, cs: int):
 def nv12_to_planes(y: torch.Tensor, uv: torch.Tensor, cs: int = 2) -> torch.Tensor:
     """NV12 (y (H, W) u8, uv (H/2, W) u8 interleaved CbCr) -> (4, H, W) u8,
     alpha 255 (``convert.nv12_to_planes``)."""
+    y = _as_device_arg(y)
+    uv = _as_device_arg(uv, y.device)
     check_nv12(y, uv)
     r, g, b = _nv12_rgb_u8(y, uv, cs)
     a = torch.full_like(r, 255)
@@ -347,6 +390,8 @@ def nv12_to_packed(
     plain versions."""
     from .decode import nv12_16_decode, nv12_decode
 
+    y = _as_device_arg(y)
+    uv = _as_device_arg(uv, y.device)
     if shift:
         return nv12_16_decode(y, uv, cs=cs, shift=shift)
     return nv12_decode(y, uv, cs=cs)

@@ -22,10 +22,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from .convert import packed_view
+from .convert import _as_device_arg, _default_device, packed_view
 from .pipeline import frame_pass, stats_inputs
 from .scope_stats import histogram_from_waveform, vs_wv_counts
 from .stats import saturate_u8
@@ -41,7 +40,7 @@ def default_backend() -> str:
     when a CUDA GPU is available, else ``"xla"`` (their plain PyTorch
     versions).  It reports the route; the input's device picks it, and a
     host array goes to the default device."""
-    return "pallas" if torch.cuda.is_available() else "xla"
+    return _ROUTES[_default_device()]
 
 
 def _host_array_device(backend: str | None) -> str:
@@ -110,8 +109,7 @@ def analyze(
     """
     if rect is not None and rect_dyn is not None:
         raise ValueError("rect and rect_dyn are mutually exclusive")
-    if not isinstance(frame, torch.Tensor):
-        frame = torch.as_tensor(np.asarray(frame), device=_host_array_device(backend))
+    frame = _as_device_arg(frame, _host_array_device(backend))
     if backend is not None and _ROUTES.get(frame.device.type) != backend:
         raise ValueError(
             f"backend={backend!r} on a {frame.device} tensor: the frame's device picks the "

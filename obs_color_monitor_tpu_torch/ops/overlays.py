@@ -6,7 +6,8 @@ integers (the JAX module carries them as integer-valued float32); only the
 zebra stripe phase is float32, as in the shader.  These are the plain
 versions of the overlay half of the frame-pipeline kernel K1 and of the
 overlay kernel K3 (``ops/fused_overlays.py``), whose shared per-pixel math
-is ``ops/csrc/overlay_math.cuh``.
+is ``ops/csrc/overlay_math.cuh``.  A host array-like input goes to the
+default device (``convert._as_device_arg``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..golden.reference import (
     falsecolor_band_colors_u8,
     luma_threshold_fixed,
 )
-from .convert import clamp_rect, interleave, luma_planes, planarize
+from .convert import _as_device_arg, clamp_rect, interleave, luma_planes, planarize
 
 BAND_COLORS = falsecolor_band_colors_u8()  # (12, 4) u8
 BAND_THRESH = tuple(luma_threshold_fixed(t) for t, _ in FALSECOLOR_BANDS[:-1])  # (11,)
@@ -58,6 +59,7 @@ def zebra_planes(
     exact there) with the floored modulo of JAX's ``%``.  ``tm`` is a
     Python float or a 0-d float32 tensor on the planes' device, taken as it
     is (:func:`clock_tensor`)."""
+    planes = _as_device_arg(planes)
     luma = luma_planes(planes, cs)
     h, w = planes.shape[-2], planes.shape[-1]
     yy = torch.arange(h, dtype=torch.float32, device=planes.device)[:, None]
@@ -76,6 +78,7 @@ def zebra_planes(
 def falsecolor_planes(planes: torch.Tensor, cs: int) -> torch.Tensor:
     """12-band false colour: the band is the first whose upper bound the
     luma is below (``overlays.falsecolor_planes``)."""
+    planes = _as_device_arg(planes)
     luma = luma_planes(planes, cs)
     thresh, colors = _band_tables(planes.device)
     band = torch.bucketize(luma, thresh, right=True)  # count of bounds <= luma
@@ -91,6 +94,7 @@ def falsecolor_lut_planes(
     (``overlays.falsecolor_lut_planes``).  lut is (N, 4) u8."""
     if lut_n > 32768:
         raise ValueError("falsecolor LUT larger than 32768 entries")
+    planes = _as_device_arg(planes)
     luma = luma_planes(planes, cs).to(torch.int64)
     i = torch.clamp((luma * lut_n) // (255 << 12), 0, lut_n - 1)
     lut = torch.as_tensor(lut, dtype=torch.uint8, device=planes.device)
@@ -111,6 +115,7 @@ def focus_peaking_planes(
     focus peaking of the cropped frame.  Outside it the JAX function's rule
     holds as well: the right/lower difference is cut at x1-1/y1-1 and the
     left/upper one at x0/y0."""
+    planes = _as_device_arg(planes)
     rgb = planes[..., :3, :, :].to(torch.int32)
     h, w = rgb.shape[-2], rgb.shape[-1]
     zeros = lambda: torch.zeros((h, w), dtype=torch.int32, device=planes.device)

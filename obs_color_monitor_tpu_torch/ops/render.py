@@ -5,7 +5,8 @@ Counterpart of ``obs_color_monitor_tpu/ops/render.py`` (the draw shaders
 ``data/histogram.effect``).  Tints are Q12 integers and the histogram fill
 test is one float32 multiply, so the images are the same on every device.
 In YUV mode display channel i reads count channel ``DISP_YUV[i]`` (the
-reference's BGRA staging order); the spec is ``golden/render.py``.
+reference's BGRA staging order); the spec is ``golden/render.py``.  A host
+array-like input goes to the default device (``convert._as_device_arg``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from ..colorspace import VECTORSCOPE_TINT, Colorspace
 from ..config import DisplayMode
 from ..golden import render as golden_render
-from .convert import OPAQUE_BLACK
+from .convert import OPAQUE_BLACK, _as_device_arg
 
 DISP_RGB, DISP_YUV = golden_render.DISP_RGB, golden_render.DISP_YUV
 TINT_Q12, TINT_U8 = golden_render.TINT_Q12, golden_render.TINT_U8
@@ -40,6 +41,7 @@ def render_vectorscope(
     v = 255 (``render.render_vectorscope``).  The chroma tint
     ``(C*256 + Cu*(2u+1-256) + Cv*(256-(2v+1))) * level`` is Q20 and rounds
     with an arithmetic shift of the (possibly negative) int32."""
+    counts = _as_device_arg(counts)
     v = (counts.flip(0).to(torch.int32) * int(intensity)).clamp(max=255)
     if white:
         return _compose_rgba(v, v, v)
@@ -83,7 +85,7 @@ def render_waveform(
     (``render.render_waveform``): OVERLAY maps each display channel to
     ``min(count * intensity, 255)``; STACK/PARADE tile Q12-tinted bands
     vertically/horizontally (n = 2 shows bands 0 and 2; n = 1 is OVERLAY)."""
-    vals = (_reorder(counts, yuv_mode).flip(1).to(torch.int32) * int(intensity)).clamp(max=255)
+    vals = (_reorder(_as_device_arg(counts), yuv_mode).flip(1).to(torch.int32) * int(intensity)).clamp(max=255)
     if n_components <= 1 or DisplayMode(display) == DisplayMode.OVERLAY:
         return _compose_rgba(vals[0], vals[1], vals[2])
     dim = 0 if DisplayMode(display) == DisplayMode.STACK else 1
@@ -112,6 +114,8 @@ def render_histogram(
     (``render.render_histogram``): a pixel is filled where
     ``level >= (1 - (row + 0.5) / H) * hi_max``, all in float32."""
     H = int(level_height)
+    levels = _as_device_arg(levels)
+    hi_max = _as_device_arg(hi_max, levels.device)
     lv = _reorder(levels, yuv_mode).to(torch.float32)
     hm = _reorder(hi_max, yuv_mode).to(torch.float32)
     rows = torch.arange(H, dtype=torch.float32, device=levels.device)
@@ -148,6 +152,8 @@ def blend_overlay(image: torch.Tensor, overlay: torch.Tensor) -> torch.Tensor:
     """Integer srcalpha/invsrcalpha blend of an (H, W, 4) u8 overlay onto an
     (H, W, 4) u8 image; the image's alpha passes through
     (``render.blend_overlay``, the device twin of ``utils.draw.alpha_blend_u8``)."""
+    image = _as_device_arg(image)
+    overlay = _as_device_arg(overlay, image.device)
     rgb = _blend(overlay[..., :3], overlay[..., 3:4], image[..., :3])
     return torch.cat([rgb, image[..., 3:]], dim=-1)
 
@@ -155,6 +161,8 @@ def blend_overlay(image: torch.Tensor, overlay: torch.Tensor) -> torch.Tensor:
 def blend_overlay_planes(planes: torch.Tensor, overlay_planes: torch.Tensor) -> torch.Tensor:
     """Planar twin of :func:`blend_overlay`: (4, H, W) image and overlay
     (``render.blend_overlay_planes``)."""
+    planes = _as_device_arg(planes)
+    overlay_planes = _as_device_arg(overlay_planes, planes.device)
     rgb = _blend(overlay_planes[:3], overlay_planes[3:4], planes[:3])
     return torch.cat([rgb, planes[3:]], dim=0)
 
@@ -163,6 +171,7 @@ def zoom_center(image: torch.Tensor, zoom: float) -> torch.Tensor:
     """Vectorscope zoom about the centre (``render.zoom_center``): scale by
     ``zoom`` with offset 127.5 * (1 - zoom), point-sampled through a host
     index map."""
+    image = _as_device_arg(image)
     if zoom <= 1.01:
         return image
     idx = _zoom_index(image.shape[0], float(zoom), image.device)

@@ -8,12 +8,17 @@ exactly.  The hand-written kernel for the vectorscope and waveform is
 ``ops/scope_stats.py``.
 
 Inputs are PLANAR: value planes (3, H, W) u8 and a mask (H, W), where a
-pixel with mask 0 is skipped (alpha 0 in the RGB family).
+pixel with mask 0 is skipped (alpha 0 in the RGB family).  The public
+functions take a tensor or a host array-like, which goes to the default
+device (``convert._as_device_arg``); a second array goes to the first's
+device.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .convert import _as_device_arg
 
 VS_SIZE = 256
 WV_SIZE = 256
@@ -37,6 +42,7 @@ def vectorscope_counts_uv(
 def vectorscope_counts_i32(yuv_planes: torch.Tensor) -> torch.Tensor:
     """Unsaturated int32 vectorscope of (3, H, W) Y, U, V planes
     (``stats.vectorscope_counts_i32``)."""
+    yuv_planes = _as_device_arg(yuv_planes)
     return vectorscope_counts_uv(yuv_planes[1], yuv_planes[2])
 
 
@@ -46,6 +52,9 @@ def waveform_counts_i32(planes: torch.Tensor, mask: torch.Tensor | None) -> torc
 
     Skipped pixels go to one spare bin past the end that is dropped, so the
     count needs no data-dependent indexing (no device sync on CUDA)."""
+    planes = _as_device_arg(planes)
+    if mask is not None:
+        mask = _as_device_arg(mask, planes.device)
     h, w = planes.shape[-2], planes.shape[-1]
     nbins = WV_SIZE * w
     col = torch.arange(w, device=planes.device, dtype=torch.int64)
@@ -65,6 +74,7 @@ def vectorscope_counts(yuv_planes: torch.Tensor) -> torch.Tensor:
     alone (K7's mode) on a card, its plain version on the CPU."""
     from .scope_stats import vs_wv_counts
 
+    yuv_planes = _as_device_arg(yuv_planes)
     u, v = yuv_planes[1].contiguous(), yuv_planes[2].contiguous()
     return saturate_u8(vs_wv_counts(u, v, None, None, need_wv=False)[0])
 
@@ -75,8 +85,9 @@ def waveform_counts(planes: torch.Tensor, mask: torch.Tensor | None) -> torch.Te
     waveform alone (K8's mode) on a card, its plain version on the CPU."""
     from .scope_stats import vs_wv_counts
 
+    planes = _as_device_arg(planes)
     if mask is not None:
-        mask = mask.contiguous()
+        mask = _as_device_arg(mask, planes.device).contiguous()
     return saturate_u8(vs_wv_counts(None, None, planes.contiguous(), mask, need_vs=False)[1])
 
 
@@ -84,6 +95,9 @@ def histogram_counts(planes: torch.Tensor, mask: torch.Tensor | None) -> torch.T
     """(3, H, W) u8 planes -> (3, 256) int32 counts, mask-0 pixels skipped.
     The JAX function returns uint32 (``stats.histogram_counts``); torch's
     uint32 lacks arithmetic, so the port keeps int32 until the API edge."""
+    planes = _as_device_arg(planes)
+    if mask is not None:
+        mask = _as_device_arg(mask, planes.device)
     out = []
     for c in range(planes.shape[0]):
         idx = planes[c].reshape(-1).to(torch.int64)
@@ -111,6 +125,7 @@ def histogram_hi_max(
     the u32 product overflows above ~4.3 M pixels.  ``n_pixels`` is a host
     integer or a 0-d integer tensor on the counts' device (a dynamic rect's
     pixel count, never read on the host)."""
+    counts = _as_device_arg(counts)
     dev = counts.device
     if level_fixed > 0:
         return torch.full((3,), max(1, int(level_fixed)), dtype=torch.int64, device=dev)
@@ -129,6 +144,8 @@ def histogram_levels(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """float32 draw levels (3, 256) and effective hi_max (3,)
     (``stats.histogram_levels``)."""
+    counts = _as_device_arg(counts)
+    hi_max = _as_device_arg(hi_max, counts.device)
     cf = counts.to(torch.float32)
     if logscale:
         s = 1.0 / torch.log(hi_max.to(torch.float32) + 1.0)
@@ -141,19 +158,24 @@ def histogram_levels(
 def select_planes(
     planes: torch.Tensor, yuv_planes: torch.Tensor | None, is_yuv: bool
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """(data (3, H, W), mask) per component family (``stats.select_planes``).
+    """(data (3, H, W), mask (H, W) bool) per component family
+    (``stats.select_planes``).
 
     The YUV family never skips (the reference's conversion writes alpha 1),
-    so its mask is None; the RGB family's mask is the alpha plane."""
+    so its mask is all true; the RGB family's mask is alpha != 0."""
+    planes = _as_device_arg(planes)
     if is_yuv:
         if yuv_planes is None:
             raise ValueError("the YUV family needs yuv_planes")
-        return yuv_planes, None
-    return planes[..., :3, :, :], planes[..., 3, :, :]
+        yuv_planes = _as_device_arg(yuv_planes, planes.device)
+        return yuv_planes, torch.ones(yuv_planes.shape[-2:], dtype=torch.bool,
+                                      device=yuv_planes.device)
+    return planes[..., :3, :, :], planes[..., 3, :, :] != 0
 
 
 def apply_channel_select(counts: torch.Tensor, sel: tuple[bool, bool, bool]) -> torch.Tensor:
     """Zero the disabled channels (``stats.apply_channel_select``).  Built
     from the channels themselves, so no host data crosses to the device (a
     CUDA graph can capture it)."""
+    counts = _as_device_arg(counts)
     return torch.stack([counts[c] if sel[c] else torch.zeros_like(counts[c]) for c in range(3)])

@@ -62,12 +62,11 @@ from __future__ import annotations
 import os
 import weakref
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..graphs import CapturedStep
-from ..ops.convert import packed_view
+from ..ops.convert import _as_device_arg, packed_view
 from ..ops.fused_overlays import fused_overlays_planes
 from ..ops.overlays import clock_tensor
 from ..ops.pipeline import frame_pass, stats_inputs
@@ -145,9 +144,7 @@ def _size_rank(mesh) -> tuple[int, int]:
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
     """A host array or a tensor as a contiguous tensor on ``device``."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device).contiguous()
+    return _as_device_arg(x, device).to(device).contiguous()
 
 
 def _slice(x, mesh, what: str) -> torch.Tensor:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..models.base import CaptureHub
+from ..ops.convert import _as_device_arg
 from . import profiler
 from .queue import DEFAULT_QUEUE_DEPTH, FrameQueue
 
@@ -263,7 +264,9 @@ class PipelineDriver:
                     self._stager = _PinnedStager(self.device, self._queue_depth + 2)
             y, uv, ready = self._stager.upload(*_host_planes(y, uv))
         else:
-            y, uv = (torch.from_numpy(np.array(a, copy=True)) for a in _host_planes(y, uv))
+            # copies: the producer may refill its buffers once push returns
+            y, uv = (_as_device_arg(np.array(a, copy=True), self.device)
+                     for a in _host_planes(y, uv))
         return self.queue.push(NV12Frame(y, uv, cs, int(shift), ready))
 
     @property

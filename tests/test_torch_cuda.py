@@ -950,3 +950,17 @@ def test_histogram_render_ties_on_the_card(cuda):
         assert torch.equal(got, cpu)
         assert np.array_equal(got.numpy(), golden_render.render_histogram(
             counts, hm, H, display, n, False))
+
+
+def test_captured_steps_take_host_arguments(cuda):
+    """chip_smoke's host-argument phase at 960x540: a numpy u32 frame with
+    an ``np.float32`` clock through the full step, numpy NV12 and P010
+    pairs through the dock step, a numpy int32 rect and a tuple of
+    ``np.int64`` through the dynamic dock step and a numpy batch with
+    numpy clocks through the batched step, each replayed equal to the
+    tensor call with the same launches and no second graph."""
+    import chip_smoke
+
+    by_path = chip_smoke.phase_host_args(cuda, h=540, w=960, roi=(40, 20, 300, 200))
+    assert len(by_path) == 5
+    assert all(c["K1"] >= 1 and c["K2"] >= 1 for c in by_path.values())

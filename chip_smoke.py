@@ -396,6 +396,8 @@ def phase_kernels(device, cases, err: dict) -> None:
 
 def phase_decode(device, err: dict) -> None:
     """K4 and K5 vs their plain versions."""
+    import torch
+
     from obs_color_monitor_tpu_torch.ops import convert as cv
     from obs_color_monitor_tpu_torch.ops import decode as dec
 
@@ -411,6 +413,19 @@ def phase_decode(device, err: dict) -> None:
             check_equal("K5", f"{h}x{w} {bits}-bit {'msb' if msb else 'lsb'} shift {shift}",
                         dec.nv12_16_decode(y, uv, cs=1 + bits % 2, shift=shift),
                         cv.nv12_16_packed_reference(y, uv, 1 + bits % 2, shift), err)
+    # the public route, nv12_to_packed: the uint32 view (as JAX's) of one
+    # K4 / K5 launch
+    for kid, wrapper, shift, bits in (("K4", dec.nv12_decode, 0, 8),
+                                      ("K5", dec.nv12_16_decode, 8, 10)):
+        y, uv = to_device(make_nv12(H4K, W4K, 77, bits, bool(shift)), device)
+        n = wrapper.launches
+        got = cv.nv12_to_packed(y, uv, cs=2, shift=shift)
+        if got.dtype != torch.uint32 or wrapper.launches - n != (device.type == "cuda"):
+            raise AssertionError(f"nv12_to_packed: {got.dtype}, {wrapper.launches - n} "
+                                 f"{kid} launches")
+        ref = (cv.nv12_16_packed_reference(y, uv, 2, shift) if shift
+               else cv.nv12_packed_reference(y, uv, 2))
+        check_equal(kid, "nv12_to_packed 4K (uint32 view)", cv.as_packed(got), ref, err)
 
 
 def overlay_cases():
@@ -2404,7 +2419,7 @@ def phase_cli(device, h=H4K, w=W4K, frames=CLI_FRAMES) -> dict:
     from obs_color_monitor_tpu_torch import ROIConfig, VectorscopeConfig, WaveformConfig
     from obs_color_monitor_tpu_torch.__main__ import main as cli
     from obs_color_monitor_tpu_torch.models import Dock, Vectorscope, Waveform
-    from obs_color_monitor_tpu_torch.models import dock as dock_mod
+    from obs_color_monitor_tpu_torch.ops import convert
     from obs_color_monitor_tpu_torch.pipeline import live
     from obs_color_monitor_tpu_torch.pipeline.ingest import NV12Source
     from obs_color_monitor_tpu_torch.pipeline.sinks import rgb_to_yuv_limited
@@ -2497,7 +2512,7 @@ def phase_cli(device, h=H4K, w=W4K, frames=CLI_FRAMES) -> dict:
               "panels' Y4M encoding", flush=True)
         # --live: publication order, one frame late, and one HTTP fetch
         events, published, fetched = [], [], []
-        upload, publish = dock_mod.nv12_device_planes, live.MJPEGServer.publish
+        upload, publish = convert.nv12_device_planes, live.MJPEGServer.publish
         servers = []
 
         def rec_upload(*a, **k):
@@ -2524,13 +2539,13 @@ def phase_cli(device, h=H4K, w=W4K, frames=CLI_FRAMES) -> dict:
                 except urllib.error.HTTPError:
                     time.sleep(0.01)
 
-        dock_mod.nv12_device_planes, live.MJPEGServer.publish = rec_upload, rec_publish
+        convert.nv12_device_planes, live.MJPEGServer.publish = rec_upload, rec_publish
         try:
             run("dock --live", ["dock", "--input", str(nv12), "--frames", str(frames),
                                 "--live", "--port", "0", "--fps", "60"],
                 ("K1", "K2", "K3", "K4"))
         finally:
-            dock_mod.nv12_device_planes, live.MJPEGServer.publish = upload, publish
+            convert.nv12_device_planes, live.MJPEGServer.publish = upload, publish
         check_panels("cli dock --live: published frames vs the directly driven panels",
                      published, want)
         ups = [events.index(("upload", i)) for i in range(frames)]
@@ -2579,6 +2594,96 @@ def phase_cli(device, h=H4K, w=W4K, frames=CLI_FRAMES) -> dict:
             sc._hub.tick()
         same("scope vectorscope, 4 frames", pngs["scope vectorscope, 4 frames"], sc.render())
     return by_path, pngs
+
+
+SERVICE_UNIT = "packaging/obs-color-monitor-tpu-torch.service"
+UNIT_FRAMES = 8  # frames of the unit's raw RGBA capture (its --frames is 600)
+
+
+def unit_command(path) -> list:
+    """A systemd unit's ``ExecStart`` as an argument list (continued lines
+    joined, quoting as the shell's)."""
+    import shlex
+    from pathlib import Path
+
+    text = Path(path).read_text().replace("\\\n", " ")
+    lines = [ln for ln in text.splitlines() if ln.startswith("ExecStart=")]
+    if len(lines) != 1:
+        raise AssertionError(f"{path}: {len(lines)} ExecStart lines")
+    return shlex.split(lines[0][len("ExecStart="):])
+
+
+def unit_args(args: list, rgba, out, h: int, w: int, device) -> list:
+    """The unit's arguments (its script name left out) with its capture and
+    panel paths pointed at ``rgba`` and ``out``, its size at ``w``x``h``
+    and its device at ``device`` (the unit's own at 4K on a card)."""
+    args = list(args)
+    for flag, value in (("--input", rgba), ("--out", out), ("--size", f"{w}x{h}"),
+                        ("--device", device.type)):
+        args[args.index(flag) + 1] = str(value)
+    return args
+
+
+def unit_inputs(tmp, h: int, w: int, frames: int = UNIT_FRAMES):
+    """The unit's raw RGBA capture, ``frames`` random frames with alpha-0
+    regions, written into ``tmp``; both the in-process and the installed
+    run write the same bytes."""
+    rgba = tmp / "frames.rgba"
+    with open(rgba, "wb") as f:
+        for i in range(frames):
+            f.write(make_frame(h, w, "random", 2600 + i).tobytes())
+    return rgba
+
+
+def phase_service_unit(device, h=H4K, w=W4K, frames=UNIT_FRAMES) -> tuple:
+    """The port's systemd unit (``packaging/obs-color-monitor-tpu-torch.
+    service``): its ``ExecStart`` read from the file, the raw RGBA source
+    (``pipeline.ingest.RawRGBASource``) on a 4K capture of ``frames``
+    frames (the unit reads up to 600; a 4K frame is 33,177,600 bytes), run
+    in process (``main([...])``) with the launch counters around it (K1, K2
+    and K3 must launch), the PNG equal to the panel of a ``models.Dock``
+    driven directly with the same frames.  The installed console script
+    runs the same command in :func:`phase_installed_cli`.  Returns (the
+    path's counts, the PNG's bytes)."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from obs_color_monitor_tpu_torch import ROIConfig
+    from obs_color_monitor_tpu_torch.__main__ import main as cli
+    from obs_color_monitor_tpu_torch.models import Dock
+    from obs_color_monitor_tpu_torch.pipeline.ingest import RawRGBASource
+
+    argv = unit_command(Path(__file__).resolve().parent / SERVICE_UNIT)
+    if (Path(argv[0]).name != "obs-color-monitor-tpu-torch" or argv[1] != "dock"
+            or argv[-2:] != ["--device", "cuda"]):
+        raise AssertionError(f"service unit: ExecStart {argv}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rgba, png = unit_inputs(tmp, h, w, frames), tmp / "panel.png"
+        args = unit_args(argv[1:], rgba, png, h, w, device)
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli(args)
+        dt = time.perf_counter() - t0
+        if rc != 0 or f"dock: {frames} frames" not in out.getvalue():
+            raise AssertionError(f"service unit: exit {rc}\n{out.getvalue()}")
+        counts = path_counts("service unit dock rgba", read_counts(), ("K1", "K2", "K3"), device)
+        print(f"service unit (in process): {' '.join(args)}: exit 0 in {dt:.2f} s: "
+              f"{out.getvalue().strip()}", flush=True)
+        d = Dock(roi=ROIConfig(target_scale=2, interleave=1), device=device)
+        for f in RawRGBASource(str(rgba), w, h).frames():
+            d.push_frame(f)
+        want = d.render(width=512, height=1536)
+        got = read_png(png)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError("service unit: the PNG differs from the directly driven Dock")
+        print(f"service unit: PNG {got.shape[1]}x{got.shape[0]} equal to a directly driven "
+              f"Dock's panel on the same {frames} frames", flush=True)
+        return {"service unit dock rgba": counts}, png.read_bytes()
 
 
 INSTALLED_FRAMES = 4  # frames of the installed console script's NV12 file
@@ -2670,7 +2775,7 @@ def lay_out_package(repo, root) -> tuple:
     return site, whl[0].name
 
 
-def phase_installed_cli(device, pngs: dict, h=H4K, w=W4K) -> None:
+def phase_installed_cli(device, pngs: dict, h=H4K, w=W4K, unit_png: bytes | None = None) -> None:
     """The console script of the installed package, on ``device``.  The
     package is laid out as its wheel installs it (:func:`lay_out_package`)
     outside the repository and made read-only; fresh processes, started in
@@ -2683,7 +2788,9 @@ def phase_installed_cli(device, pngs: dict, h=H4K, w=W4K) -> None:
     layout is unchanged after the runs; no process imported ``jax`` or
     ``obs_color_monitor_tpu``; each PNG equals the in-process CLI phase's
     byte for byte (``pngs``); ``info`` reports whether the native runtime
-    is active."""
+    is active.  With ``unit_png``, the service unit's command
+    (:func:`phase_service_unit`) runs on the console script too, its PNG
+    equal byte for byte to ``unit_png``."""
     import os
     import shutil
     import tempfile
@@ -2769,6 +2876,16 @@ def phase_installed_cli(device, pngs: dict, h=H4K, w=W4K) -> None:
                 raise AssertionError(f"installed {name}: the PNG differs from the in-process "
                                      "CLI's")
             print(f"installed {name}: PNG equal byte for byte to the in-process CLI's", flush=True)
+        if unit_png is not None:
+            argv = unit_command(repo / SERVICE_UNIT)
+            rgba, png = unit_inputs(work, h, w), work / "panel.png"
+            run(f"service unit dock rgba ({script.name})",
+                [str(script)] + unit_args(argv[1:], rgba, png, h, w, device))
+            if png.read_bytes() != unit_png:
+                raise AssertionError("installed service unit: the PNG differs from the "
+                                     "in-process run's")
+            print("installed service unit: PNG equal byte for byte to the in-process run's",
+                  flush=True)
         after = tree_state(site)
         if after != before or (site / PORT / "_build").exists():
             changed = sorted(set(before.items()) ^ set(after.items()))
@@ -2924,7 +3041,9 @@ def main() -> int:
                **phase_batched(device), **phase_driver_dock(device)}
     cli_counts, cli_pngs = phase_cli(device)
     by_path.update(cli_counts)
-    phase_installed_cli(device, cli_pngs)
+    unit_counts, unit_png = phase_service_unit(device)
+    by_path.update(unit_counts)
+    phase_installed_cli(device, cli_pngs, unit_png=unit_png)
     mesh_counts, _ = phase_mesh(device, card)
     by_path.update(mesh_counts)
     phase_golden(device)

@@ -402,6 +402,11 @@ def cmd_info(args) -> int:
     return 0
 
 
+# every subcommand's ``--device`` default: the card (a test may point it at
+# the CPU for a ``main()`` it runs in-process)
+_DEFAULT_DEVICE = "cuda"
+
+
 def _check_device(device: str) -> bool:
     """False (after saying why on stderr) when ``device`` is ``cuda`` and
     no CUDA GPU is available: the CLI never falls back to the CPU."""
@@ -414,12 +419,14 @@ def _check_device(device: str) -> bool:
     return True
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
+    """The CLI's argument parser: the JAX CLI's subcommands and options,
+    each subcommand with ``--device``."""
     p = argparse.ArgumentParser(prog="obs_color_monitor_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def add_device(sp):
-        sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+        sp.add_argument("--device", choices=["cuda", "cpu"], default=_DEFAULT_DEVICE,
                         help="where the scopes run (cuda needs a CUDA GPU)")
 
     def add_io(sp):
@@ -499,8 +506,11 @@ def main(argv=None) -> int:
     i = sub.add_parser("info", help="device/runtime info")
     add_device(i)
     i.set_defaults(fn=cmd_info)
+    return p
 
-    args = p.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
     if not _check_device(args.device):
         return 2
     return args.fn(args)

@@ -30,7 +30,6 @@ from ..config import CaptureConfig, ROIConfig
 from ..ops.convert import (
     _as_device_arg,
     host_packed_view,
-    nv12_device_planes,
     nv12_to_packed,
     planes_to_rgba,
 )
@@ -292,6 +291,8 @@ class CaptureHub:
         16 bits), in one copy when they are adjacent views of one buffer.
         ``cs`` is the decode colorimetry; it defaults to the hub's analysis
         colorspace."""
+        from ..ops.convert import nv12_device_planes  # looked up at the call, as in JAX
+
         cs_i = int(cs) if cs is not None else int(self.colorspace)
         return self.process(nv12_to_packed(*nv12_device_planes(y, uv, self.device), cs=cs_i,
                                            shift=shift))

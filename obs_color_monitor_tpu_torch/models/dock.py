@@ -49,7 +49,6 @@ from ..graphs import captured
 from ..ops.convert import (
     OPAQUE_BLACK,
     host_packed_view,
-    nv12_device_planes,
     nv12_to_packed,
     planes_to_rgba,
 )
@@ -241,6 +240,10 @@ class Dock:
         rendered = self._rendered_since_push
         self._rendered_since_push = False
         self.hub.tick()
+        # looked up at the call, as JAX's push_nv12 does: a patched
+        # ops.convert.nv12_device_planes sees every upload
+        from ..ops.convert import nv12_device_planes
+
         pending = _NV12Pending(*nv12_device_planes(y, uv, self.device), cs_i, int(shift))
         if rendered and self._stream_ok():
             self._pending = pending

@@ -99,9 +99,10 @@ def planarize_packed(x32: torch.Tensor) -> torch.Tensor:
 
 
 def host_packed_view(frame):
-    """Host (H, W, 4) u8 C-contiguous frame -> its (H, W) int32 packed view
-    (the same bytes, a free numpy view); anything else passes through
-    (``convert.host_packed_view``, which returns the u32 view)."""
+    """Host (H, W, 4) u8 C-contiguous frame -> its (H, W) uint32 packed
+    view (the same bytes, a free numpy view), as ``convert.host_packed_view``
+    returns it; anything else passes through.  The port's conversion
+    (:func:`_as_device_arg`) takes the uint32 array to its int32 view."""
     if (
         isinstance(frame, np.ndarray)
         and frame.ndim == 3
@@ -109,7 +110,7 @@ def host_packed_view(frame):
         and frame.dtype == np.uint8
         and frame.flags["C_CONTIGUOUS"]
     ):
-        return frame.view(np.int32).reshape(frame.shape[:2])
+        return frame.view(np.uint32).reshape(frame.shape[:2])
     return frame
 
 
@@ -381,17 +382,19 @@ def nv12_shift(bits: int, msb_aligned: bool = False) -> int:
 def nv12_to_packed(
     y: torch.Tensor, uv: torch.Tensor, cs: int = 2, shift: int = 0
 ) -> torch.Tensor:
-    """NV12 -> the (H, W) int32 packed-RGBA view, decoded on the planes'
-    device (``convert.nv12_to_packed``); a batch of (B, H, W) and
-    (B, H/2, W) planes decodes in one launch to (B, H, W).  ``shift`` > 0
-    takes P010-family u16 planes and fuses the round-shift into the decode
-    (:func:`nv12_shift`).  Kernel K5 runs for ``shift`` > 0, K4 otherwise
-    (``ops/decode.py``), each checking its planes; a CPU tensor runs their
-    plain versions."""
+    """NV12 -> the (H, W) uint32 packed-RGBA view, decoded on the planes'
+    device (``convert.nv12_to_packed``, which returns uint32 too); a batch
+    of (B, H, W) and (B, H/2, W) planes decodes in one launch to (B, H, W).
+    ``shift`` > 0 takes P010-family u16 planes and fuses the round-shift
+    into the decode (:func:`nv12_shift`).  Kernel K5 runs for ``shift`` > 0,
+    K4 otherwise (``ops/decode.py``), each checking its planes; a CPU tensor
+    runs their plain versions.  The result is a view of the kernels' int32
+    output, which the port's steps take back with :func:`as_packed` (torch's
+    uint32 has almost no arithmetic)."""
     from .decode import nv12_16_decode, nv12_decode
 
     y = _as_device_arg(y)
     uv = _as_device_arg(uv, y.device)
     if shift:
-        return nv12_16_decode(y, uv, cs=cs, shift=shift)
-    return nv12_decode(y, uv, cs=cs)
+        return nv12_16_decode(y, uv, cs=cs, shift=shift).view(torch.uint32)
+    return nv12_decode(y, uv, cs=cs).view(torch.uint32)

@@ -278,32 +278,35 @@ def stats_inputs(ds: torch.Tensor, yuv: torch.Tensor, yuv_data: bool):
     return u, v, ds[..., :3, :, :], ds[..., 3, :, :]
 
 
-def _pipeline(pass_fn, count_fn, frame, tm, yuv_data, kw):
+def _pipeline(pass_fn, count_fn, frame, tm, rect, yuv_data, kw):
     ds, yuv, zb, fc, fp = pass_fn(frame, tm, **kw)
-    vs, wv = count_fn(*stats_inputs(ds, yuv, yuv_data))
+    vs, wv = count_fn(*stats_inputs(ds, yuv, yuv_data), rect=rect)
     return vs, wv, ds, zb, fc, fp
 
 
-def frame_pipeline(frame, tm=0.0, *, yuv_data: bool = False, **kw):
+def frame_pipeline(frame, tm=0.0, rect=None, *, yuv_data: bool = False, **kw):
     """(vs_i32 (256, 256), wv_i32 (3, 256, w), ds (4, h, w), zebra,
     falsecolor, focuspeaking) as the JAX ``frame_pipeline`` returns them,
-    at any integer scale.  Keywords as :func:`frame_pass`
-    (``packed`` defaults to False here, as in JAX)."""
+    at any integer scale.  ``rect`` is a dynamic ROI in scaled coordinates
+    (:func:`scope_stats.vs_wv_counts`): the counts take only in-rect
+    pixels, ``ds`` and the overlays stay whole.  Keywords as
+    :func:`frame_pass` (``packed`` defaults to False here, as in JAX)."""
     kw.setdefault("packed", False)
-    return _pipeline(frame_pass, vs_wv_counts, frame, tm, yuv_data, kw)
+    return _pipeline(frame_pass, vs_wv_counts, frame, tm, rect, yuv_data, kw)
 
 
-def frame_pipeline_reference(frame, tm=0.0, *, yuv_data: bool = False, **kw):
+def frame_pipeline_reference(frame, tm=0.0, rect=None, *, yuv_data: bool = False, **kw):
     """Plain version of :func:`frame_pipeline` on any device."""
     kw.setdefault("packed", False)
-    return _pipeline(frame_pass_reference, vs_wv_counts_reference, frame, tm, yuv_data, kw)
+    return _pipeline(frame_pass_reference, vs_wv_counts_reference, frame, tm, rect, yuv_data,
+                     kw)
 
 
 def _ingest(pass_fn, count_fn, planes, cs, scale, yuv_data):
     if planes.ndim != 3 or planes.shape[0] != 4 or planes.dtype != torch.uint8:
         raise ValueError(f"planes must be (4, H, W) u8, got {tuple(planes.shape)} {planes.dtype}")
     kw = dict(packed=False, cs=int(cs), scale=scale, with_overlays=False)
-    vs, wv, ds, *_ = _pipeline(pass_fn, count_fn, planes, 0.0, yuv_data, kw)
+    vs, wv, ds, *_ = _pipeline(pass_fn, count_fn, planes, 0.0, None, yuv_data, kw)
     return vs, wv, ds
 
 

@@ -102,7 +102,7 @@ def make_mesh(n_devices: int | None = None, axis: str = BATCH_AXIS, device="cuda
     Unlike a JAX mesh device, a torch rank is a process: the mesh's size is
     the group's world size, and every rank calls the functions of this
     module.  ``n_devices``, when given, must equal the world size
-    (``ValueError`` otherwise).  With no group initialized, a world-size-1
+    (``ValueError`` otherwise, with no group started).  With no group initialized, a world-size-1
     group is started in this process (NCCL on a card, gloo on the CPU), so
     that a one-card run works as the JAX call does on one chip; a
     multi-process run initializes its group first
@@ -116,6 +116,11 @@ def make_mesh(n_devices: int | None = None, axis: str = BATCH_AXIS, device="cuda
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_mesh: no CUDA device")
     if not dist.is_initialized():
+        # refused before the group starts: a refused call leaves none behind
+        if n_devices is not None and n_devices != 1:
+            raise ValueError(f"make_mesh: n_devices={n_devices}, but no process group is "
+                             "initialized and the one started here has world size 1 (one "
+                             "rank per device)")
         if device_type == "cuda":
             torch.cuda.set_device(0)
         dist.init_process_group(_BACKENDS[device_type], store=dist.HashStore(), rank=0,

@@ -24,12 +24,14 @@ def test_planarize_and_packed_views(small_frame):
     planes = tconv.planarize(torch.from_numpy(f))
     assert np.array_equal(planes.numpy(), np.asarray(jconv.planarize(jnp.asarray(f))))
     packed = tconv.host_packed_view(f)
-    assert packed.dtype == np.int32 and packed.shape == f.shape[:2]
-    assert np.array_equal(packed.view(np.uint32), jconv.host_packed_view(f))
-    from_packed = tconv.planarize_packed(torch.from_numpy(packed))
+    jpacked = jconv.host_packed_view(f)
+    assert packed.dtype == jpacked.dtype == np.uint32 and packed.shape == f.shape[:2]
+    assert np.array_equal(packed, jpacked)
+    from_packed = tconv.planarize_packed(torch.from_numpy(packed.view(np.int32)))
     assert np.array_equal(from_packed.numpy(), planes.numpy())
-    # a uint32 tensor is accepted as the same bytes
-    u32 = torch.from_numpy(packed.view(np.uint32).copy())
+    # the uint32 array, and a uint32 tensor, are taken as the same bytes
+    assert torch.equal(tconv.planarize_packed(packed), from_packed)
+    u32 = torch.from_numpy(packed.copy())
     assert torch.equal(tconv.planarize_packed(u32), from_packed)
     back = tconv.planes_to_rgba(planes)
     assert np.array_equal(back.numpy(), f)

@@ -93,6 +93,23 @@ def test_nv12_decode_kernel(cuda, h, w, cs):
     assert torch.equal(got, cv.nv12_packed_reference(y, uv, cs))
 
 
+@pytest.mark.parametrize("shift", [0, 8])
+def test_nv12_to_packed_is_uint32_on_the_card(cuda, shift):
+    """The public route returns the uint32 view, as JAX's does, from one
+    K4 (K5) launch; ``as_packed`` takes it back to the kernel's int32."""
+    import chip_smoke
+
+    y, uv = (torch.from_numpy(p).to(cuda)
+             for p in chip_smoke.make_nv12(66, 142, 9, bits=10 if shift else 8, msb=True))
+    wrapper = dec.nv12_16_decode if shift else dec.nv12_decode
+    launches = wrapper.launches
+    got = cv.nv12_to_packed(y, uv, cs=2, shift=shift)
+    assert got.dtype == torch.uint32 and wrapper.launches == launches + 1
+    want = (cv.nv12_16_packed_reference(y, uv, 2, shift) if shift
+            else cv.nv12_packed_reference(y, uv, 2))
+    assert torch.equal(cv.as_packed(got), want)
+
+
 @pytest.mark.parametrize("bits,msb", [(10, False), (10, True), (12, False), (16, False)])
 def test_nv12_16_decode_kernel(cuda, bits, msb):
     rng = np.random.default_rng(bits)
@@ -964,3 +981,16 @@ def test_captured_steps_take_host_arguments(cuda):
     by_path = chip_smoke.phase_host_args(cuda, h=540, w=960, roi=(40, 20, 300, 200))
     assert len(by_path) == 5
     assert all(c["K1"] >= 1 and c["K2"] >= 1 for c in by_path.values())
+
+
+def test_service_unit_rgba_dock_on_the_card(cuda):
+    """chip_smoke's service-unit phase at 960x540: the unit's command in
+    process, on a raw RGBA file of 8 frames, its PNG equal to a directly
+    driven Dock's panel, K1, K2 and K3 launched (the phase raises
+    otherwise)."""
+    import chip_smoke
+
+    by_path, png = chip_smoke.phase_service_unit(cuda, h=540, w=960)
+    counts = by_path["service unit dock rgba"]
+    assert min(counts[k] for k in ("K1", "K2", "K3")) >= 1
+    assert png.startswith(b"\x89PNG")

@@ -543,7 +543,7 @@ def test_live_upload_issued_before_previous_publish(tmp_path, monkeypatch):
     accumulates the previous one (src/common.c:335-403).  A refactor that
     serializes publish-then-decode-then-upload breaks the order this test
     pins."""
-    from obs_color_monitor_tpu_torch.models import dock as conv_mod
+    from obs_color_monitor_tpu_torch.ops import convert as conv_mod
     from obs_color_monitor_tpu_torch.pipeline import live as live_mod
 
     w, h, n = 32, 16, 5

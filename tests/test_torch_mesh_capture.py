@@ -37,6 +37,18 @@ worker = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(worker)
 
 
+@pytest.mark.parametrize("n", [2, 8])
+def test_refused_make_mesh_starts_no_group(n):
+    """``make_mesh(n)`` with no group and n other than 1 is refused before
+    a group starts (JAX's ``make_mesh(8)`` of tests/test_parallel.py used
+    to leave a world-size-1 group behind for the next file of the worker).
+    Runs before the module's group exists."""
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match=f"n_devices={n}"):
+        par.make_mesh(n, device="cpu")
+    assert not dist.is_initialized()
+
+
 @pytest.fixture(scope="module")
 def meshes():
     """(batch mesh, rows mesh) over a world-size-1 gloo group, destroyed at

@@ -70,7 +70,8 @@ def test_decode16_matches_jax(h, w, bits, msb):
     assert np.array_equal(_u32(got), np.asarray(pal))
     # the dispatcher picks K5 for shift > 0
     via = tconv.nv12_to_packed(torch.from_numpy(y16), torch.from_numpy(uv16), cs=2, shift=shift)
-    assert torch.equal(via, got)
+    assert via.dtype == torch.uint32  # as JAX's
+    assert torch.equal(tconv.as_packed(via), got)
 
 
 def test_wrong_dtype_rejected():

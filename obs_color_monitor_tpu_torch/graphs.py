@@ -36,6 +36,11 @@ What a captured step does on a CUDA device:
   call (as JAX's returned arrays do not);
 * it keeps at most ``max_graphs`` graphs, dropping the least recently used
   (with it, its memory pool);
+* with the profiler on (``pipeline.profiler``), a call is a ``step.call``
+  span holding ``step.fill``, ``step.replay`` (and its device time, from a
+  pair of CUDA events), ``step.clone`` or, for a new signature,
+  ``step.capture``; the counters ``step.captures`` and ``step.evictions``
+  count the graphs made and dropped;
 * the kernel wrappers count their launches in Python, which a replay does
   not run, so each graph records the launches its capture made and every
   replay adds them.  The warm-up and the capture are set-up: the counters
@@ -57,6 +62,7 @@ import torch
 
 from .api import check_device
 from .ops.convert import _as_device_arg, _host_array
+from .pipeline import profiler
 
 
 def _counters() -> list:
@@ -185,21 +191,31 @@ class CapturedStep:
         self._graphs: collections.OrderedDict = collections.OrderedDict()
 
     def __call__(self, *args):
+        with profiler.span("step.call"):
+            return self._call(args)
+
+    def _call(self, args):
         args = tuple(_host_arg(a) for a in args)
         if self.device.type != "cuda":
             return self.eager(*(_on_device(a, self.device) for a in args))
         key = tuple(_spec(a) for a in args)
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._capture(key, args)
+            with profiler.span("step.capture"):
+                entry = self._capture(key, args)
         else:
             self._graphs.move_to_end(key)
-            for buf, a in zip(entry.inputs, args):
-                _fill(buf, a, self.device)
-        entry.graph.replay()
+            with profiler.span("step.fill"):
+                for buf, a in zip(entry.inputs, args):
+                    _fill(buf, a, self.device)
+        with profiler.span("step.replay"):
+            ev = profiler.device_start(self.device)
+            entry.graph.replay()
+            profiler.device_stop(ev, "step.replay")
         for (obj, name), n in zip(_counters(), entry.launches):
             setattr(obj, name, getattr(obj, name) + n)
-        return _fresh(entry.outputs)
+        with profiler.span("step.clone"):
+            return _fresh(entry.outputs)
 
     @property
     def graphs(self) -> int:
@@ -231,8 +247,10 @@ class CapturedStep:
             setattr(obj, name, n)
         while len(self._graphs) >= self.max_graphs:
             self._graphs.popitem(last=False)
+            profiler.count("step.evictions")
         entry = _Graph(graph, inputs, outputs, launches)
         self._graphs[key] = entry
+        profiler.count("step.captures")
         return entry
 
 

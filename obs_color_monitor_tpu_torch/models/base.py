@@ -34,6 +34,7 @@ from ..ops.convert import (
     planes_to_rgba,
 )
 from ..ops.fused import AnalysisResult, analyze
+from ..pipeline import profiler
 
 _MISS = object()
 
@@ -267,8 +268,6 @@ class CaptureHub:
         self.published_rect = rect
         needs = self.union_needs()
         cs = self.colorspace
-        from ..pipeline import profiler
-
         with profiler.probe("render_target"):
             result = analyze(
                 frame, cs=int(cs), scale=scale, rect=None if full else rect,

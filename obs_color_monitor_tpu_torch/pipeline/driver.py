@@ -15,6 +15,18 @@ thread (the JAX driver's asynchronous ``device_put``): the planes go into
 a ring of pinned host buffers and cross on a producer side stream, so the
 copy overlaps the worker's device work; the queued frame carries the event
 that marks its arrival, and the worker's stream waits on it.
+
+With the profiler on (``pipeline.profiler``), a push is a
+``producer.push_nv12`` (or ``producer.push_frame``) span, which starts the
+frame's id, holding the stager's ``stager.slot_wait``,
+``stager.host_copy`` and ``stager.upload``; the id rides beside the frame
+in the queue (``queue.wait``, from the push to the worker's pop; a refused
+push counts ``queue.dropped_full`` or ``queue.rejected_closed``), and the
+worker's ``pipeline_loop`` span, the Dock's and the captured step's spans
+inside it and ``driver.on_panel`` carry it.  A pair of CUDA events times
+the frame on the worker's stream from its arrival to its panel
+(``frame.device``).  The native fixed-shape queue carries no id: a frame
+from it starts a new one at ``pipeline_loop`` and has no ``queue.wait``.
 """
 
 from __future__ import annotations
@@ -22,15 +34,17 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import NamedTuple, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..models.base import CaptureHub
 from ..ops.convert import _as_device_arg
 from . import profiler
 from .queue import DEFAULT_QUEUE_DEPTH, FrameQueue
+
+if TYPE_CHECKING:  # the models import the pipeline's profiler
+    from ..models.base import CaptureHub
 
 log = logging.getLogger("obs_color_monitor_tpu_torch.pipeline")
 
@@ -107,14 +121,16 @@ class _PinnedStager:
         self._next = (k + 1) % self.n_slots
         buf, ev = self._bufs[k], self._events[k]
         t0 = time.perf_counter()
-        ev.synchronize()
+        with profiler.span("stager.slot_wait"):
+            ev.synchronize()
         t1 = time.perf_counter()
-        host = buf.numpy()
-        np.copyto(host[:h], y)
-        np.copyto(host[h:], uv)
+        with profiler.span("stager.host_copy"):
+            host = buf.numpy()
+            np.copyto(host[:h], y)
+            np.copyto(host[h:], uv)
         self.host_copy_s += time.perf_counter() - t1
         self.wait_s += t1 - t0
-        with torch.cuda.stream(self.stream):
+        with profiler.span("stager.upload"), torch.cuda.stream(self.stream):
             dev = torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
             dev.copy_(buf, non_blocking=True)
             ev.record(self.stream)
@@ -238,7 +254,18 @@ class PipelineDriver:
     # -- producer ------------------------------------------------------------
     def push_frame(self, frame) -> bool:
         """Non-blocking enqueue; False = dropped (queue full)."""
-        return self.queue.push(frame)
+        with profiler.span("producer.push_frame", profiler.NEW):
+            return self._enqueue(frame)
+
+    def _enqueue(self, item) -> bool:
+        """Push ``item`` with the producer's frame id beside it (the
+        profiler's; None while it is off); a refused push is counted by its
+        cause."""
+        fid = profiler.enqueued()
+        if self.queue.push(item, fid):
+            return True
+        profiler.count("queue.rejected_closed" if self.queue.closed else "queue.dropped_full")
+        return False
 
     def push_nv12(self, y, uv, cs: Optional[int] = None, shift: int = 0) -> bool:
         """Enqueue a wire-format NV12/P010 frame (raw planes, decode on the
@@ -255,19 +282,20 @@ class PipelineDriver:
                 "push_nv12 needs the object queue; the native fixed-shape "
                 "queue carries single packed frames only"
             )
-        ready = None
-        if isinstance(y, torch.Tensor) and isinstance(uv, torch.Tensor):
-            pass
-        elif self.device.type == "cuda":
-            with self._state_lock:
-                if self._stager is None:
-                    self._stager = _PinnedStager(self.device, self._queue_depth + 2)
-            y, uv, ready = self._stager.upload(*_host_planes(y, uv))
-        else:
-            # copies: the producer may refill its buffers once push returns
-            y, uv = (_as_device_arg(np.array(a, copy=True), self.device)
-                     for a in _host_planes(y, uv))
-        return self.queue.push(NV12Frame(y, uv, cs, int(shift), ready))
+        with profiler.span("producer.push_nv12", profiler.NEW):
+            ready = None
+            if isinstance(y, torch.Tensor) and isinstance(uv, torch.Tensor):
+                pass
+            elif self.device.type == "cuda":
+                with self._state_lock:
+                    if self._stager is None:
+                        self._stager = _PinnedStager(self.device, self._queue_depth + 2)
+                y, uv, ready = self._stager.upload(*_host_planes(y, uv))
+            else:
+                # copies: the producer may refill its buffers once push returns
+                y, uv = (_as_device_arg(np.array(a, copy=True), self.device)
+                         for a in _host_planes(y, uv))
+            return self._enqueue(NV12Frame(y, uv, cs, int(shift), ready))
 
     @property
     def staging(self) -> dict:
@@ -283,12 +311,13 @@ class PipelineDriver:
     def _loop(self) -> None:
         log.debug("entering pipeline thread")  # reference common.c:376
         while self._running:
-            frame = self.queue.pop(timeout=0.1)
+            frame, fid = self.queue.pop_tagged(timeout=0.1)
             if frame is None:
                 continue
+            profiler.dequeued(fid)
             try:
                 with self._lock:
-                    with profiler.probe("pipeline_loop"):
+                    with profiler.span("pipeline_loop", fid):
                         self._consume(frame)
             except Exception:
                 # a consumer failure must not kill the pipeline thread;
@@ -321,6 +350,9 @@ class PipelineDriver:
         (dock.push_frame ticks the hub itself)."""
         if isinstance(frame, NV12Frame):
             self._arrive(frame)
+        # the card's time on the frame, from its arrival to its panel (a
+        # pair of timing events while the profiler is on)
+        ev = profiler.device_start(self.device)
         if self._dock is not None:
             if isinstance(frame, NV12Frame):
                 self._dock.push_nv12(
@@ -329,8 +361,10 @@ class PipelineDriver:
             else:
                 self._dock.push_frame(frame)
             panel = self._dock.render_async()
+            profiler.device_stop(ev, "frame.device")
             if panel is not None and self._on_panel is not None:
-                self._on_panel(panel)
+                with profiler.span("driver.on_panel"):
+                    self._on_panel(panel)
         else:
             self.hub.tick()
             if isinstance(frame, NV12Frame):
@@ -339,6 +373,7 @@ class PipelineDriver:
                 )
             else:
                 self.hub.process(frame)
+            profiler.device_stop(ev, "frame.device")
         if self.device.type == "cuda":
             if self._done is None:
                 self._done = torch.cuda.Event()

@@ -1,6 +1,7 @@
 """Bounded frame queue with drop-on-full backpressure.
 
-Counterpart of ``obs_color_monitor_tpu/pipeline/queue.py`` (a copy).
+Counterpart of ``obs_color_monitor_tpu/pipeline/queue.py`` (a copy, with a
+tag beside each item: the driver's frame id, for the profiler's spans).
 Mirrors the reference's 3-deep staging queue: the graphics thread drops the
 frame when the queue is full rather than blocking (reference
 src/common.h:46, src/common.c:260-268), and a consumer thread drains it
@@ -25,15 +26,17 @@ class FrameQueue:
     def __init__(self, depth: int = DEFAULT_QUEUE_DEPTH):
         self.depth = depth
         self._q: deque[Any] = deque()
+        self._tags: deque[Any] = deque()  # beside each item, its tag
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._closed = False
         self.n_pushed = 0
         self.n_dropped = 0
 
-    def push(self, item: Any) -> bool:
+    def push(self, item: Any, tag: Any = None) -> bool:
         """Enqueue; returns False (frame dropped) when full
-        (reference src/common.c:260-268)."""
+        (reference src/common.c:260-268).  ``tag`` rides beside the item
+        (the pipeline driver's frame id), for :meth:`pop_tagged`."""
         with self._cond:
             if self._closed:
                 return False
@@ -41,6 +44,7 @@ class FrameQueue:
                 self.n_dropped += 1
                 return False
             self._q.append(item)
+            self._tags.append(tag)
             self.n_pushed += 1
             self._cond.notify()
             return True
@@ -51,11 +55,20 @@ class FrameQueue:
         ``timeout`` bounds the TOTAL wait (wait_for tracks one deadline; a
         bare wait(timeout) in a loop would restart the full timeout on
         every spurious/stolen wakeup)."""
+        return self.pop_tagged(timeout)[0]
+
+    def pop_tagged(self, timeout: Optional[float] = None) -> tuple[Any, Any]:
+        """:meth:`pop` and the item's tag: (None, None) on close or timeout."""
         with self._cond:
             self._cond.wait_for(lambda: self._q or self._closed, timeout)
             if self._q:
-                return self._q.popleft()
-            return None
+                return self._q.popleft(), self._tags.popleft()
+            return None, None
+
+    @property
+    def closed(self) -> bool:
+        """Whether :meth:`close` was called (every push is refused)."""
+        return self._closed
 
     def close(self) -> None:
         with self._cond:

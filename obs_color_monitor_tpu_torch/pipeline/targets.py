@@ -17,9 +17,10 @@ reference's dangling-weak-ref behavior).
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
-from ..models.base import CaptureHub
+if TYPE_CHECKING:  # the models import the pipeline's profiler
+    from ..models.base import CaptureHub
 
 # Special target names (reference src/common.h:9-22).
 PROGRAM = ""

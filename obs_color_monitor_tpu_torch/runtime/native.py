@@ -249,6 +249,7 @@ class NativeFrameQueue:
     def __init__(self, depth: int, frame_shape: tuple[int, ...]):
         self.frame_shape = tuple(frame_shape)
         self.frame_bytes = int(np.prod(frame_shape))
+        self._closed = False
         self._lib = _load()
         if self._lib is not None:
             self._q = self._lib.ocm_queue_create(depth, self.frame_bytes)
@@ -263,7 +264,10 @@ class NativeFrameQueue:
     def is_native(self) -> bool:
         return self._q is not None
 
-    def push(self, frame: np.ndarray) -> bool:
+    def push(self, frame: np.ndarray, tag=None) -> bool:
+        """Enqueue a copy of ``frame``; False when full or closed.  ``tag``
+        is taken for the object queue's sake and dropped: this queue carries
+        frames only, so :meth:`pop_tagged` gives None for it."""
         if self._py is not None:
             return self._py.push(np.ascontiguousarray(frame, dtype=np.uint8))
         buf = np.ascontiguousarray(frame, dtype=np.uint8)
@@ -287,11 +291,19 @@ class NativeFrameQueue:
         )
         return out if ok else None
 
+    def pop_tagged(self, timeout: float = 0.1) -> tuple[Optional[np.ndarray], None]:
+        return self.pop(timeout), None
+
     def close(self) -> None:
+        self._closed = True
         if self._py is not None:
             self._py.close()
         else:
             self._lib.ocm_queue_close(self._q)
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
     def __len__(self) -> int:
         if self._py is not None:

@@ -29,7 +29,9 @@ any failure raises and the exit code is non-zero:
    not a multiple of 16 and on frames with fewer rows than a waveform
    cluster has blocks; K9 (the fused ingest statistics) at scale 2 on
    3840x2160 and scale 1 on 1920x1080 and odd shapes, and one 270x480 case
-   against the golden model;
+   against the golden model; KC (the dynamic dock step's panel assembly)
+   on the 4K dock's images against its plain version at the drag's rects
+   and the edge rects, in int32 and in 64-bit index math;
 4. the main paths, each on the card and on the CPU, every output field
    equal, the launch counters set to 0 just before each path and read just
    after it (every kernel of the path must have launched):
@@ -91,8 +93,9 @@ any failure raises and the exit code is non-zero:
 5. timing with CUDA events (warm-up, then the median of 25 runs of 10
    back-to-back calls): each step eagerly (``step.eager``) and as its
    graph replay (input copies and output copies included), per frame: the
-   4K full step, the 4K NV12 dock step, its dynamic-ROI form, the settled
-   Dock and the batched step at B = 1, 2, 4; each kernel beside its plain
+   4K full step, the 4K NV12 dock step, its dynamic-ROI form (also with
+   its panel assembled by the plain version, the torch ops KC replaces),
+   the settled Dock and the batched step at B = 1, 2, 4; each kernel beside its plain
    version and, where one exists, the one PyTorch call that computes the
    same function (K2 and K3 also in rect mode, K2 also on a flat frame, K6
    also on a whole 4K frame at scale 1 (the mesh paths' shape), K1
@@ -643,7 +646,8 @@ def phase_ingest(device, err: dict) -> None:
 def read_counts() -> dict:
     """Every kernel wrapper's launch count; K2's kernel pair counts as
     ``both``, its kernels alone as K7 / K8."""
-    from obs_color_monitor_tpu_torch.ops import decode, fused_overlays, pipeline, scope_stats
+    from obs_color_monitor_tpu_torch.ops import (
+        compose, decode, fused_overlays, pipeline, scope_stats)
 
     vs = scope_stats.vs_wv_counts
     return {
@@ -659,11 +663,13 @@ def read_counts() -> dict:
         "K3 rect": fused_overlays.fused_overlays_planes.launches_rect,
         "K4": decode.nv12_decode.launches,
         "K5": decode.nv12_16_decode.launches,
+        "KC": compose.compose_dyn_panel.launches,
     }
 
 
 def reset_counts() -> None:
-    from obs_color_monitor_tpu_torch.ops import decode, fused_overlays, pipeline, scope_stats
+    from obs_color_monitor_tpu_torch.ops import (
+        compose, decode, fused_overlays, pipeline, scope_stats)
 
     vs = scope_stats.vs_wv_counts
     pipeline.frame_pass.launches = pipeline.frame_pass.launches_vec = 0
@@ -672,6 +678,7 @@ def reset_counts() -> None:
     fo = fused_overlays.fused_overlays_planes
     fo.launches = fo.launches_rect = fo.launches_vec = 0
     decode.nv12_decode.launches = decode.nv12_16_decode.launches = 0
+    compose.compose_dyn_panel.launches = 0
 
 
 def run_path(name: str, build, host_frames: list, fmt: str, device, needs: tuple,
@@ -787,8 +794,8 @@ def phase_dynamic_dock(device, h=H4K, w=W4K, roi=ROI, frames=DRAG_FRAMES) -> dic
         before = read_counts()
         outs.append(step(x, 1.0, r).to_numpy())
         per_frame.append({k: v - before[k] for k, v in read_counts().items()})
-    counts = path_counts(name, read_counts(), ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect"),
-                         device)
+    counts = path_counts(name, read_counts(),
+                         ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect", "KC"), device)
     if any(c != per_frame[0] for c in per_frame):
         raise AssertionError(f"path {name}: launches differ between rects: {per_frame}")
     print(f"path {name}: the same launches for each of {frames} rects: {per_frame[0]}",
@@ -821,6 +828,88 @@ def phase_dynamic_dock(device, h=H4K, w=W4K, roi=ROI, frames=DRAG_FRAMES) -> dic
         print(f"path {name}: one CUDA graph, replayed for {len(graph_rects)} rects (as tensors "
               "and as host ints), equals the eager step at each", flush=True)
     return {name: counts}
+
+
+def dyn_assembly(step, frame, rect) -> tuple:
+    """(slot table, images, rect) of the dynamic step's panel assembly as
+    KC's wrapper checks them, from one eager call on the card; on the CPU,
+    as its plain version receives them."""
+    from obs_color_monitor_tpu_torch import dock_step
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    seen = {}
+    check, plain = compose.check_panel_inputs, dock_step.assemble_dyn_panel
+
+    def spy(fn):
+        def record(table, images, r):
+            seen.update(args=(table, dict(images), r))
+            return fn(table, images, r)
+        return record
+
+    compose.check_panel_inputs, dock_step.assemble_dyn_panel = spy(check), spy(plain)
+    try:
+        step.eager(frame, 1.0, rect)
+    finally:
+        compose.check_panel_inputs, dock_step.assemble_dyn_panel = check, plain
+    return seen["args"]
+
+
+class plain_assembly:
+    """Within it, the dynamic step assembles its panel with the plain
+    version (the ~190 torch ops that KC replaces) on the card too: a step
+    captured inside keeps them in its graph."""
+
+    def __enter__(self):
+        from obs_color_monitor_tpu_torch import dock_step
+        from obs_color_monitor_tpu_torch.ops import compose
+
+        def plain(table, images, rect):
+            return dock_step.assemble_dyn_panel(table, images, rect)
+
+        self.wrapper = compose.compose_dyn_panel
+        plain.launches = self.wrapper.launches  # the captures read and restore it
+        compose.compose_dyn_panel = plain
+
+    def __exit__(self, *exc):
+        from obs_color_monitor_tpu_torch.ops import compose
+
+        self.wrapper.launches = compose.compose_dyn_panel.launches
+        compose.compose_dyn_panel = self.wrapper
+
+
+def phase_compose(device, err: dict, h=H4K, w=W4K, roi=ROI) -> None:
+    """KC against its plain version on the same images: the 4K NV12 dock's
+    dynamic step (all six scopes) at the drag's rects and the edge rects,
+    in int32 and in 64-bit index math (the form a panel too large for int32
+    takes), one launch a call."""
+    import torch
+
+    from obs_color_monitor_tpu_torch import DockConfig, dock_step, make_dock_step
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    step = make_dock_step(h, w, scale=2, input_format="nv12",
+                          dock=DockConfig(show_focuspeaking=True), dynamic_roi=True, device=device)
+    sw, sh = w // 2, h // 2
+    x = to_device(make_nv12(h, w, 750), device)
+    rects = drag_rects(roi, DRAG_FRAMES, (max(1, sw // 48), max(1, sh // 54))) + [
+        (0, 0, sw, sh), (sw - 1, sh - 1, sw, sh), (-50, -20, 10 * sw, 10 * sh),
+        (sw // 3, sh // 3, sw // 3, sh), (sw // 2, sh // 2, sw // 2, sh // 2)]
+    worst = 0
+    for r in rects:
+        table, images, rect = dyn_assembly(step, x, torch.tensor(r, dtype=torch.int32,
+                                                                  device=device))
+        want = dock_step.assemble_dyn_panel(table, images, rect).cpu()
+        for t in (table, table._replace(wide=True)):
+            n = compose.compose_dyn_panel.launches
+            got = compose.compose_dyn_panel(t, images, rect).cpu()
+            if compose.compose_dyn_panel.launches - n != (device.type == "cuda"):
+                raise AssertionError("KC: not one launch a call")
+            worst = max(worst, max_abs_err(got, want))
+    err["KC"] = worst
+    if worst:
+        raise AssertionError(f"KC: panel differs from the plain assembly by {worst}")
+    print(f"KC: the 4K dock's panel equal to the plain assembly at {len(rects)} rects, int32 "
+          "and 64-bit", flush=True)
 
 
 def phase_stream_dock(device, h=H4K, w=W4K, roi=ROI, frames=DRAG_FRAMES) -> dict:
@@ -1786,7 +1875,8 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     import torch
 
     from obs_color_monitor_tpu_torch import (
-        DockConfig, make_batched_step, make_dock_step, make_full_step)
+        DockConfig, dock_step, make_batched_step, make_dock_step, make_full_step)
+    from obs_color_monitor_tpu_torch.ops import compose
     from obs_color_monitor_tpu_torch.ops import convert as cv
     from obs_color_monitor_tpu_torch.ops import decode as dec
     from obs_color_monitor_tpu_torch.ops import fused_overlays as fo
@@ -1906,6 +1996,21 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     roi_t = torch.tensor(ROI, dtype=torch.int32, device=device)
     fns["dock_nv12_dynamic"] = lambda: dyn.eager((y, uv), 1.0, roi_t)
     fns["dock_nv12_dynamic_graph"] = lambda: dyn((y, uv), 1.0, roi_t)
+    # the same step with its panel assembled by the plain version (the torch
+    # ops KC replaces), captured so: the replay before KC
+    dyn_plain = make_dock_step(H4K, W4K, scale=2, input_format="nv12", dynamic_roi=True,
+                               dock=DockConfig(show_focuspeaking=True), device=device)
+    with plain_assembly():
+        dyn_plain((y, uv), 1.0, roi_t)
+    fns["dock_nv12_dynamic_graph_plain_assembly"] = lambda: dyn_plain((y, uv), 1.0, roi_t)
+    # KC alone on the step's images, and its plain version on the card
+    kc_args = dyn_assembly(dyn, (y, uv), roi_t)
+    fns["kc"] = lambda: compose.compose_dyn_panel(*kc_args)
+    fns["kc_plain"] = lambda: dock_step.assemble_dyn_panel(*kc_args)
+    # KC: the panel written once and about one 4-byte source sample read
+    # per panel pixel; ~100 integer operations a pixel
+    n_px = kc_args[0].out_w * kc_args[0].out_h
+    bounds["KC"] = bound(n_px * 4 * 2, n_px * 100)
     # the settled streaming Dock: a push and a render (the replay and the
     # publication), and its captured stream step's function eagerly
     dock = settled_dock(device, (y, uv))
@@ -2101,6 +2206,10 @@ def phase_profile(device, card: str) -> None:
     dyn = make_dock_step(H4K, W4K, scale=2, input_format="nv12", dynamic_roi=True,
                          dock=DockConfig(show_focuspeaking=True), device=device)
     roi_t = torch.tensor(ROI, dtype=torch.int32, device=device)
+    dyn_plain = make_dock_step(H4K, W4K, scale=2, input_format="nv12", dynamic_roi=True,
+                               dock=DockConfig(show_focuspeaking=True), device=device)
+    with plain_assembly():
+        dyn_plain(nv12, 1.0, roi_t)  # captured with the torch assembly
     _, batch, tms = batch_input(H4K, W4K, "packed", 4, 1100, device)
     batched = make_batched_step(H4K, W4K, scale=2, input_format="packed", device=device)
     for label, fn, frame in (
@@ -2109,6 +2218,7 @@ def phase_profile(device, card: str) -> None:
         ("dock_p010", p010, to_device(make_nv12(H4K, W4K, 6, 10, True), device)),
         ("dock_nv12_dynamic", lambda f, tm: dyn(f, tm, roi_t), nv12),
         ("dock_nv12_dynamic eager", lambda f, tm: dyn.eager(f, tm, roi_t), nv12),
+        ("dock_nv12_dynamic plain assembly", lambda f, tm: dyn_plain(f, tm, roi_t), nv12),
         ("batched B=4", lambda f, tm: batched(f, tms), batch),
         ("batched B=4 eager", lambda f, tm: batched.eager(f, tms), batch),
     ):
@@ -2912,6 +3022,8 @@ KERNELS = [  # id, wrapper, source, TPU kernel it replaces, timing key, library 
      "k8_library"),
     ("K9", "fused_ingest_stats_scale2 (K1's scale launch, then K2)", "frame_pipeline.cu",
      "ops/pallas_stats.py:419", "k9", "k9_library"),
+    ("KC", "compose_dyn_panel", "dock_compose.cu",
+     "dock_step.py:485-710 (step_dyn's composite in XLA ops; no Pallas kernel)", "kc", None),
 ]
 # K9 runs the kernels of two sources; K2 and K3 also run with a dynamic rect
 SOURCES = {"K9": ("frame_pipeline.cu", "scope_stats.cu")}
@@ -3032,6 +3144,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_rect_kernels(device, err)
     phase_ingest(device, err)
+    phase_compose(device, err)
     torch.cuda.synchronize()
     by_path = {**phase_main_path(device), **phase_dock_paths(device),
                **phase_ingest_path(device), **phase_dynamic_dock(device),

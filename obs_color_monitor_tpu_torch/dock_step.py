@@ -8,11 +8,14 @@ K5), ``ops/fused.analyze`` (K1, K2), the three overlays on the capture
 layout with the reference's aspect rules (src/scope-widget.cpp:99-175) and
 the composite.  Layout is static, so the composite is slices and small
 nearest-resize gathers.  With ``dynamic_roi=True`` (the JAX step_dyn,
-``:485-710``) the ROI is a (4,) int32 device tensor that K2 and K3 read on
-the device and the slot samplers gather by: a new rect changes no launch
-and no host work.  On a CUDA device the step is captured once as a CUDA
-graph and replayed (``graphs.CapturedStep``, the counterpart of the JAX
-step's ``@jax.jit``).
+``:485-710``) the ROI is a (4,) int32 device tensor that K2, K3 and the
+panel's assembly read on the device: a new rect changes no launch and no
+host work.  The assembly (the shaded preview, the slot samplers, the key
+legend and the composite) is one kernel launch on a card
+(``ops/compose.compose_dyn_panel``) and :func:`assemble_dyn_panel`'s
+torch ops on the CPU.  On a CUDA device the step is captured once as a
+CUDA graph and replayed (``graphs.CapturedStep``, the counterpart of the
+JAX step's ``@jax.jit``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from .config import (
     ZebraConfig,
 )
 from .golden.reference import peaking_threshold_fixed
+from .ops import compose
 from .ops import render as render_ops
 from .ops.convert import (
     OPAQUE_BLACK,
@@ -228,6 +232,96 @@ def compose_vstack(patches: list, out_w: int, out_h: int) -> torch.Tensor:
     return torch.cat(bands, dim=0).view(torch.uint8).view(out_h, out_w, 4)
 
 
+@functools.lru_cache(maxsize=256)
+def _arange(n: int, device: torch.device) -> torch.Tensor:
+    """0 .. n - 1 as int64 on ``device`` (a band's columns or rows)."""
+    return torch.arange(n, dtype=torch.int64, device=device)
+
+
+def assemble_dyn_panel(table: compose.PanelTable, images: dict,
+                       rect: torch.Tensor) -> torch.Tensor:
+    """The dynamic-ROI step's (out_h, out_w, 4) u8 panel in torch ops (the
+    JAX step_dyn's composite, ``dock_step.py:485-710``): the plain version
+    of ``ops/compose.compose_dyn_panel``'s kernel, run for a CPU rect.
+    ``images``: the scope name -> the slot's source (for ``roi`` the
+    capture's planes); ``rect``: the (4,) int32 rect, clamped into the
+    capture here.  Every index the slot samplers gather by is an integer
+    tensor computed on the device from the clamped rect."""
+    device = rect.device
+    rect_c = clamp_rect(rect, *table.capture)
+    rx0, ry0, rx1, ry1 = rect_c.to(torch.int64)
+    rw1, rh1 = (rx1 - rx0).clamp(min=1), (ry1 - ry0).clamp(min=1)
+    sw = table.capture[0]
+
+    def key_patch(img, ws, hs, jj, ii, slot):
+        """The false-colour slot with its key legend: the canvas (the rect
+        extended by the key strip) fitted into the band, the rect's pixels
+        sampled through it and the legend texture blended over the box
+        (the canvas maps affinely onto the fitted box;
+        ``dock_step.py:387-405``)."""
+        cw = _floordiv(rw1 * 11, 10) if slot.key_wide else rw1
+        ch = _floordiv(rh1 * 12, 10) if slot.key_tall else rh1
+        fw, fh = _fit_dyn(ws, hs, cw, ch)
+        dxo = _floordiv(ws - fw, 2)
+        cx, cy = _floordiv((jj - dxo) * cw, fw), _floordiv(ii * ch, fh)
+        col_in, row_in = (jj >= dxo) & (jj < dxo + fw), ii < fh
+        valid = (row_in & (cy < rh1))[:, None] & (col_in & (cx < rw1))[None, :]
+        base = _dyn_sample_rgba(img, ry0 + torch.minimum(cy.clamp(min=0), rh1 - 1),
+                                rx0 + torch.minimum(cx.clamp(min=0), rw1 - 1), valid)
+        legend = table.legend
+        lh, lw = legend.shape[0], legend.shape[1]
+        lg = _dyn_sample_rgba(legend, _floordiv(ii * lh, fh).clamp(0, lh - 1),
+                              _floordiv((jj - dxo) * lw, fw).clamp(0, lw - 1))
+        a = torch.where(row_in[:, None] & col_in[None, :], lg[..., 3].to(torch.int32), 0)
+        a = a[..., None]
+        rgb = (lg[..., :3].to(torch.int32) * a + base[..., :3].to(torch.int32) * (255 - a)
+               + 127) // 255
+        return torch.cat([rgb.to(torch.uint8), base[..., 3:]], dim=-1)
+
+    patches = []
+    for slot in table.slots:
+        x0s, y0s, ws, hs = slot.band
+        img = images[slot.name]
+        if slot.kind == compose.PREVIEW:
+            # the full capture with the selection shaded
+            img = shaded_preview(img, rect_c)
+        if slot.kind in (compose.PREVIEW, compose.NEAREST):
+            patches.append((x0s, y0s, _resize_nearest_rgba(img, hs, ws)))
+            continue
+        jj, ii = _arange(ws, device), _arange(hs, device)
+        if slot.kind == compose.WAVEFORM:
+            # the rect's columns stretched across the slot; in parade mode
+            # through the per-component segments first
+            if slot.parade > 1:
+                m = _floordiv(jj * (rw1 * slot.parade), ws)
+                cseg = _floordiv(m, rw1)
+                src_j = cseg * sw + rx0 + (m - cseg * rw1)
+            else:
+                src_j = rx0 + _floordiv(jj * rw1, ws)
+            patches.append((x0s, y0s, _dyn_sample_rgba(img, _nearest_index(slot.src[0], hs,
+                                                                             device), src_j)))
+            continue
+        if slot.kind == compose.KEYED:
+            patches.append((x0s, y0s, key_patch(img, ws, hs, jj, ii, slot)))
+            continue
+        # content x-centred and top-aligned in its band, as _layout places
+        # the static patch
+        if slot.kind == compose.ACTUAL:
+            # 1:1 pixels, centred on the rect, cropped to the slot
+            fw, fh = rw1.clamp(max=ws), rh1.clamp(max=hs)
+            dxo = _floordiv(ws - fw, 2)
+            src_j = rx0 + _floordiv(rw1 - fw, 2) + (jj - dxo)
+            sy = ry0 + _floordiv(rh1 - fh, 2) + ii
+        else:
+            fw, fh = _fit_dyn(ws, hs, rw1, rh1)
+            dxo = _floordiv(ws - fw, 2)
+            src_j = rx0 + _floordiv((jj - dxo) * rw1, fw)
+            sy = ry0 + _floordiv(ii * rh1, fh)
+        valid = (ii < fh)[:, None] & ((jj >= dxo) & (jj < dxo + fw))[None, :]
+        patches.append((x0s, y0s, _dyn_sample_rgba(img, sy, src_j, valid)))
+    return compose_vstack(patches, table.out_w, table.out_h)
+
+
 def _layout(shown_dims: list[tuple[str, int, int]], cx: int, cy: int, fp_actual: bool):
     """Static layout (reference draw, src/scope-widget.cpp:117-170;
     ``dock_step._layout``)."""
@@ -308,7 +402,9 @@ def make_dock_step(
     first call and replayed after (``graphs.CapturedStep``): each call
     copies the frame, ``tm`` and the rect into the graph's buffers (a host
     rect as 4 ints written with ``fill_``) and returns fresh outputs.  ``step.eager`` is the uncaptured
-    step; ``step.rects`` and ``step.dims`` are the static layout.
+    step; ``step.rects`` and ``step.dims`` are the static layout; a dynamic
+    step's ``step.table`` is its panel's slot table (``ops/compose``) and
+    ``step.fused_compose`` says whether one kernel assembles the panel.
     """
     from .graphs import captured
 
@@ -470,51 +566,23 @@ def make_dock_step(
         return packed_view(frame)
 
     if dynamic_roi:
-        # the JAX step_dyn (``dock_step.py:485-710``): every index the slot
-        # samplers gather by is an integer tensor computed on the device from
-        # the clamped rect; the static sizes are built here, once
-        arange = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-        idx = {name: (arange(rects[name][2]), arange(rects[name][3])) for name, _, _ in shown}
-        wv_sy = None
-        if "waveform" in rects:
-            hs, r_img = rects["waveform"][3], 256 * (
-                wv_n if wv_cfg.display == DisplayMode.STACK else 1)
-            wv_sy = torch.as_tensor(np.minimum(np.arange(hs) * r_img // hs, r_img - 1),
-                                    dtype=torch.int64, device=device)
-        # the key legend: a texture at the band's resolution, sampled by the
-        # display fraction of the dynamic fit and blended over it (the canvas
-        # maps affinely onto the fitted box; ``dock_step.py:387-405``)
-        fc_key_dyn = None
+        # the JAX step_dyn (``dock_step.py:485-710``): the panel is assembled
+        # from the step's images by a slot table built here, once.  The key
+        # legend is a texture at the band's resolution, sampled by the
+        # display fraction of the dynamic fit and blended over it
+        legend = None
         if "falsecolor" in rects and fc_cfg.show_key != ShowKey.NONE:
             ws_fc, hs_fc = rects["falsecolor"][2], rects["falsecolor"][3]
             base_w = ws_fc * 10 // 11 if fc_cfg.show_key == ShowKey.OUTSIDE else ws_fc
             base_h = hs_fc * 10 // 12 if fc_cfg.show_key == ShowKey.BELOW else hs_fc
             key = falsecolor_key_overlay(fc_cfg.show_key, base_w, base_h, fc_cs,
                                          lut=fc_cfg.lut if fc_cfg.use_lut else None)
-            fc_key_dyn = torch.as_tensor(np.ascontiguousarray(key), device=device)
-        parade = wv_cfg.display == DisplayMode.PARADE and wv_n > 1
-
-        def key_patch(img, ws, hs, jj, ii, rx0, ry0, rw1, rh1):
-            """The false-colour slot with its key legend: the canvas (the rect
-            extended by the key strip) fitted into the band, the rect's pixels
-            sampled through it and the legend texture blended over the box."""
-            cw = _floordiv(rw1 * 11, 10) if fc_cfg.show_key == ShowKey.OUTSIDE else rw1
-            ch = _floordiv(rh1 * 12, 10) if fc_cfg.show_key == ShowKey.BELOW else rh1
-            fw, fh = _fit_dyn(ws, hs, cw, ch)
-            dxo = _floordiv(ws - fw, 2)
-            cx, cy = _floordiv((jj - dxo) * cw, fw), _floordiv(ii * ch, fh)
-            col_in, row_in = (jj >= dxo) & (jj < dxo + fw), ii < fh
-            valid = (row_in & (cy < rh1))[:, None] & (col_in & (cx < rw1))[None, :]
-            base = _dyn_sample_rgba(img, ry0 + torch.minimum(cy.clamp(min=0), rh1 - 1),
-                                    rx0 + torch.minimum(cx.clamp(min=0), rw1 - 1), valid)
-            lh, lw = fc_key_dyn.shape[0], fc_key_dyn.shape[1]
-            lg = _dyn_sample_rgba(fc_key_dyn, _floordiv(ii * lh, fh).clamp(0, lh - 1),
-                                  _floordiv((jj - dxo) * lw, fw).clamp(0, lw - 1))
-            a = torch.where(row_in[:, None] & col_in[None, :], lg[..., 3].to(torch.int32), 0)
-            a = a[..., None]
-            rgb = (lg[..., :3].to(torch.int32) * a + base[..., :3].to(torch.int32) * (255 - a)
-                   + 127) // 255
-            return torch.cat([rgb.to(torch.uint8), base[..., 3:]], dim=-1)
+            legend = torch.as_tensor(np.ascontiguousarray(key), device=device)
+        table = compose.panel_table(
+            [n for n, _, _ in shown], rects, dims, (sw, sh), (out_width, out_height),
+            fp_actual=fp_cfg.actual_size,
+            wv_parade=wv_n if wv_cfg.display == DisplayMode.PARADE and wv_n > 1 else 1,
+            show_key=fc_cfg.show_key, legend=legend)
 
         def step_dyn(frame, tm: float, rect: torch.Tensor) -> DockStepOutput:
             src = source(frame)
@@ -531,13 +599,10 @@ def make_dock_step(
             )
             rect_c = clamp_rect(rect, sw, sh)
             rx0, ry0, rx1, ry1 = rect_c.to(torch.int64)
-            rw, rh = rx1 - rx0, ry1 - ry0
-            rw1, rh1 = rw.clamp(min=1), rh.clamp(min=1)
-            images = {}
-            if "roi" in rects:
-                images["roi"] = shaded_preview(res.planes, rect_c)
+            images = {"roi": res.planes}
             # the histogram's levels use the rect's pixel count
-            vs_counts, wv_counts, hi_counts = _stat_renders(res, rw * rh, images)
+            vs_counts, wv_counts, hi_counts = _stat_renders(res, (rx1 - rx0) * (ry1 - ry0),
+                                                            images)
             zb = fc = fp = None
             if any(k3_outputs):
                 zb, fc, fp = fused_overlays_planes(res.planes, tm, rect=rect, **k3_kw)
@@ -545,54 +610,16 @@ def make_dock_step(
                 fc = planes_to_rgba(falsecolor_lut_planes(res.planes, fc_lut, cs=fc_cs,
                                                           lut_n=fc_lut.shape[0]))
             images.update(zebra=zb, falsecolor=fc, focuspeaking=fp)
-
-            patches = []
-            for name, _, _ in shown:
-                x0s, y0s, ws, hs = rects[name]
-                img = images[name]
-                if name in ("roi", "vectorscope", "histogram"):
-                    patches.append((x0s, y0s, _resize_nearest_rgba(img, hs, ws)))
-                    continue
-                jj, ii = idx[name]
-                if name == "waveform":
-                    # the rect's columns stretched across the slot; in parade
-                    # mode through the per-component segments first
-                    if parade:
-                        m = _floordiv(jj * (rw1 * wv_n), ws)
-                        cseg = _floordiv(m, rw1)
-                        src_j = cseg * sw + rx0 + (m - cseg * rw1)
-                    else:
-                        src_j = rx0 + _floordiv(jj * rw1, ws)
-                    patches.append((x0s, y0s, _dyn_sample_rgba(img, wv_sy, src_j)))
-                    continue
-                if name == "falsecolor" and fc_key_dyn is not None:
-                    patch = key_patch(img, ws, hs, jj, ii, rx0, ry0, rw1, rh1)
-                    patches.append((x0s, y0s, patch))
-                    continue
-                # content x-centred and top-aligned in its band, as _layout
-                # places the static patch
-                if name == "focuspeaking" and fp_cfg.actual_size:
-                    # 1:1 pixels, centred on the rect, cropped to the slot
-                    fw, fh = rw1.clamp(max=ws), rh1.clamp(max=hs)
-                    dxo = _floordiv(ws - fw, 2)
-                    src_j = rx0 + _floordiv(rw1 - fw, 2) + (jj - dxo)
-                    sy = ry0 + _floordiv(rh1 - fh, 2) + ii
-                else:
-                    fw, fh = _fit_dyn(ws, hs, rw1, rh1)
-                    dxo = _floordiv(ws - fw, 2)
-                    src_j = rx0 + _floordiv((jj - dxo) * rw1, fw)
-                    sy = ry0 + _floordiv(ii * rh1, fh)
-                valid = (ii < fh)[:, None] & ((jj >= dxo) & (jj < dxo + fw))[None, :]
-                patches.append((x0s, y0s, _dyn_sample_rgba(img, sy, src_j, valid)))
             return DockStepOutput(
-                panel=compose_vstack(patches, out_width, out_height),
+                panel=compose.compose_dyn_panel(table, images, rect),
                 vs_counts=vs_counts,
                 wv_counts=wv_counts,
                 hi_counts=hi_counts.to(torch.uint32),
                 planes=res.planes,
             )
 
-        return captured(step_dyn, device, rects=dict(rects), dims=dict(dims))
+        return captured(step_dyn, device, rects=dict(rects), dims=dict(dims), table=table,
+                        fused_compose=device.type == "cuda")
 
     def step(frame, tm: float) -> DockStepOutput:
         src = source(frame)

@@ -67,7 +67,7 @@ from .pipeline import profiler
 
 def _counters() -> list:
     """(wrapper, attribute) of every kernel launch counter."""
-    from .ops import decode, fused_overlays, pipeline, scope_stats
+    from .ops import compose, decode, fused_overlays, pipeline, scope_stats
 
     vs = scope_stats.vs_wv_counts
     fo = fused_overlays.fused_overlays_planes
@@ -75,7 +75,8 @@ def _counters() -> list:
             (vs, "launches"), (vs, "launches_vec"), (vs, "launches_vs_only"),
             (vs, "launches_wv_only"), (vs, "launches_rect"),
             (fo, "launches"), (fo, "launches_rect"), (fo, "launches_vec"),
-            (decode.nv12_decode, "launches"), (decode.nv12_16_decode, "launches")]
+            (decode.nv12_decode, "launches"), (decode.nv12_16_decode, "launches"),
+            (compose.compose_dyn_panel, "launches")]
 
 
 def _read_counters(counters) -> list[int]:

@@ -29,7 +29,9 @@ With the profiler on (``pipeline.profiler``) the Dock's calls are spans:
 the route taken (``dock.settled``, ``dock.dynamic``, or the hub fan-out
 ``dock.fanout``; ``dock.skipped`` counts a skipped frame), the publication
 after a step (``dock.publish``) and the selection outline
-(``dock.indicator``), and ``dock.mouse`` for each mouse call.
+(``dock.indicator``), and ``dock.mouse`` for each mouse call.  Each
+``dock.dynamic`` frame counts ``compose.fused`` where its step assembles
+the panel in one kernel launch (a card), else ``compose.plain``.
 """
 
 from __future__ import annotations
@@ -538,9 +540,11 @@ class Dock:
         overlay planes.  Statistics scopes hidden in the dock keep their
         last publication."""
         out = self._device_step_out(frame, float(self.zebra.tm), cx, cy)
+        step = self._device_step
+        # the panel's assembly: KC's one launch on a card, torch ops elsewhere
+        profiler.count("compose.fused" if step.fused_compose else "compose.plain")
         with profiler.span("dock.publish"):
             hub = self.hub
-            step = self._device_step
             # mouse routing follows the step's static bands (the overlay slots'
             # source dims are the bands themselves)
             self._rects = {n: (r[0], r[1], r[2], r[3], step.dims[n][0] or r[2],

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from obs_color_monitor_tpu_torch import DockConfig, frame_from_numpy, make_dock_step, make_full_step
+from obs_color_monitor_tpu_torch import config as cfg
 from obs_color_monitor_tpu_torch.ops import convert as cv
 from obs_color_monitor_tpu_torch.ops import decode as dec
 from obs_color_monitor_tpu_torch.ops import fused_overlays as fo
@@ -994,3 +995,136 @@ def test_service_unit_rgba_dock_on_the_card(cuda):
     counts = by_path["service unit dock rgba"]
     assert min(counts[k] for k in ("K1", "K2", "K3")) >= 1
     assert png.startswith(b"\x89PNG")
+
+
+# KC, the dynamic step's panel assembly in one launch (ops/compose.py), on
+# every slot kind: configuration -> (make_dock_step keywords, panel size)
+_LUT = np.random.default_rng(3).integers(0, 256, (40, 4), np.uint8)
+COMPOSE_LAYOUTS = {
+    "overlay": (dict(dock=DockConfig(show_focuspeaking=True)), (256, 900)),
+    "parade_key_outside": (dict(
+        dock=DockConfig(show_focuspeaking=True),
+        waveform=cfg.WaveformConfig(display=cfg.DisplayMode.PARADE),
+        falsecolor=cfg.FalseColorConfig(show_key=cfg.ShowKey.OUTSIDE)), (256, 900)),
+    "stack_key_below_actual_size": (dict(
+        dock=DockConfig(show_focuspeaking=True),
+        waveform=cfg.WaveformConfig(display=cfg.DisplayMode.STACK),
+        falsecolor=cfg.FalseColorConfig(show_key=cfg.ShowKey.BELOW),
+        focuspeaking=cfg.FocusPeakingConfig(actual_size=True)), (200, 1100)),
+    "lut_key_left": (dict(
+        dock=DockConfig(show_focuspeaking=True),
+        falsecolor=cfg.FalseColorConfig(show_key=cfg.ShowKey.LEFT, use_lut=True, lut=_LUT)),
+        (333, 777)),
+    "lut_hidden_scopes": (dict(
+        dock=DockConfig(show_vectorscope=False, show_histogram=False, show_focuspeaking=True),
+        falsecolor=cfg.FalseColorConfig(use_lut=True, lut=_LUT)), (130, 501)),
+    "panel_too_short": (dict(dock=DockConfig(show_focuspeaking=True)), (97, 5)),
+}
+# full, quarter, one pixel, empty, negative, reversed, past the edge and
+# odd-aligned, at the 120x68 capture
+COMPOSE_RECTS = [(0, 0, 120, 68), (30, 17, 90, 51), (64, 33, 65, 34), (50, 20, 50, 40),
+                 (-9, -5, 31, 22), (90, 50, 20, 10), (101, 55, 700, 300), (3, 1, 118, 67),
+                 (17, 9, 54, 30), (0, 0, 1, 68)]
+
+
+def _recorded_assembly(step, frame, rect, monkeypatch):
+    """The step's slot table, images and rect as the kernel's wrapper
+    checks them, from one eager call, and the step's output."""
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    seen, check = {}, compose.check_panel_inputs
+
+    def spy(table, images, r):
+        seen.update(table=table, images=dict(images), rect=r)
+        return check(table, images, r)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(compose, "check_panel_inputs", spy)
+        out = step.eager(frame, 1.25, rect)
+    return seen["table"], seen["images"], seen["rect"], out
+
+
+@pytest.mark.parametrize("layout", sorted(COMPOSE_LAYOUTS))
+def test_dock_compose_kernel_equals_plain_assembly(cuda, layout, monkeypatch):
+    """KC's panel equals the plain assembly's on the same images, byte for
+    byte, at every rect of the sweep, in int32 and in 64-bit index math;
+    the dynamic step launches it once and its panel equals the CPU step's."""
+    from obs_color_monitor_tpu_torch import dock_step
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    kw, (ow, oh) = COMPOSE_LAYOUTS[layout]
+    f = _frame(136, 240, 21)
+    steps = {dev: make_dock_step(136, 240, out_width=ow, out_height=oh, dynamic_roi=True,
+                                 device=dev, **kw) for dev in (cuda, "cpu")}
+    assert steps[cuda].fused_compose and not steps["cpu"].fused_compose
+    for r in COMPOSE_RECTS:
+        rect = torch.tensor(r, dtype=torch.int32, device=cuda)
+        n = compose.compose_dyn_panel.launches
+        table, images, got_rect, out = _recorded_assembly(
+            steps[cuda], torch.from_numpy(f).to(cuda), rect, monkeypatch)
+        assert compose.compose_dyn_panel.launches == n + 1 and got_rect is rect
+        plain = dock_step.assemble_dyn_panel(table, images, rect)
+        assert torch.equal(out.panel, plain), (layout, r)
+        wide = compose.compose_dyn_panel(table._replace(wide=True), images, rect)
+        torch.cuda.synchronize()
+        assert torch.equal(wide, plain), (layout, r)
+        ref = steps["cpu"](torch.from_numpy(f), 1.25, torch.tensor(r, dtype=torch.int32))
+        assert np.array_equal(out.panel.cpu().numpy(), ref.panel.numpy()), (layout, r)
+
+
+def test_dock_compose_captured_step_replays_ten_rects(cuda):
+    """One captured dynamic step with KC in it, replayed over ten rects:
+    each panel equals the CPU step's, one KC launch per replay, one graph."""
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    kw, (ow, oh) = COMPOSE_LAYOUTS["parade_key_outside"]
+    rng = np.random.default_rng(22)
+    y = rng.integers(0, 256, (136, 240), np.uint8)
+    uv = rng.integers(0, 256, (68, 240), np.uint8)
+    steps = {dev: make_dock_step(136, 240, input_format="nv12", out_width=ow, out_height=oh,
+                                 dynamic_roi=True, device=dev, **kw) for dev in (cuda, "cpu")}
+    x = frame_from_numpy((y, uv), "nv12", cuda)
+    steps[cuda](x, 0.5, torch.tensor(COMPOSE_RECTS[1], dtype=torch.int32, device=cuda))
+    for r in COMPOSE_RECTS:
+        n = compose.compose_dyn_panel.launches
+        got = steps[cuda](x, 0.5, torch.tensor(r, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert compose.compose_dyn_panel.launches == n + 1
+        ref = steps["cpu"](frame_from_numpy((y, uv), "nv12", "cpu"), 0.5,
+                           torch.tensor(r, dtype=torch.int32))
+        for k, v in ref.to_numpy().items():
+            assert np.array_equal(got.to_numpy()[k], v), (r, k)
+    assert steps[cuda].graphs == 1
+
+
+def test_dock_compose_counts_fused_frames(cuda):
+    """A drag through a Dock on the card: every ``dock.dynamic`` frame
+    counts ``compose.fused``, none ``compose.plain``."""
+    from obs_color_monitor_tpu_torch.models import Dock
+    from obs_color_monitor_tpu_torch.pipeline import profiler
+
+    dock = Dock(DockConfig(), roi=cfg.ROIConfig(interleave=0, target_scale=2, x0=8, y0=4,
+                                                x1=32, y1=16), device=cuda)
+    rng = np.random.default_rng(23)
+    planes = [rng.integers(0, 256, (72, 96), dtype=np.uint8) for _ in range(6)]
+    for b in planes[:2]:
+        dock.push_nv12(b[:48], b[48:])
+        dock.render_async()
+    x0, y0, w, h, _, _ = dock._rects["roi"]
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        dock.mouse_move(x0 + w // 2, y0 + h // 2)
+        dock.mouse_down(x0 + w // 2, y0 + h // 2)
+        for k, b in enumerate(planes[2:]):
+            dock.mouse_move(x0 + w // 2 + 2 * (k + 1), y0 + h // 2 + k + 1)
+            dock.push_nv12(b[:48], b[48:])
+            dock.render_async()
+        torch.cuda.synchronize()
+        snap = profiler.snapshot()
+    finally:
+        profiler.enable(False)
+        profiler.reset()
+    dynamic = sum(s["name"] == "dock.dynamic" for s in snap["spans"])
+    assert dynamic == 4 and snap["counters"].get("compose.fused") == dynamic
+    assert "compose.plain" not in snap["counters"]

@@ -5,7 +5,8 @@ names and units of the allowed characters and lengths, each metric's
 ``workloads`` and ``moves`` naming what exists, every cell reporting
 ``setup_s``, another end-to-end metric, a per-layer metric and the
 end-to-end metric each of its per-layer metrics moves, the configuration,
-traffic and reader files each name points to, and the bounds.  A run calls
+traffic and reader files each name points to, each configuration file's
+keys (``serve.config_problems``), and the bounds.  A run calls
 :func:`check_modules` at its end: no module of JAX or of the JAX package
 may have been loaded.
 """
@@ -16,7 +17,7 @@ import json
 import re
 import sys
 
-from . import spec
+from . import serve, spec
 from .traffic import generator
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -79,6 +80,7 @@ def problems(bench: dict) -> list:
             data = json.loads(path.read_text())
             if data.get("reduced") != c["reduced"]:
                 out.append(f"config {c['name']}: reduced differs from its file's")
+            out += [f"config {c['name']}: {b}" for b in serve.config_problems(data)]
         if len(c["reduced"]) > 16 or not all(NAME.match(k) for k in c["reduced"]):
             out.append(f"config {c['name']}: reduced")
     pairs = set()

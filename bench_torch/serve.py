@@ -8,6 +8,9 @@ driver's worker runs ``Dock.push_nv12`` and ``Dock.render_async`` (the
 captured settled or dynamic dock step) and the sink copies the panel to the
 host.  A frame counts when its panel is on the host.
 
+A configuration file's ``"content"`` picks the picture (``POOLS``): the
+camera scene of ``content`` (the default) or the desktop of ``screen``.
+
 The benchmark's own wrappers around ``Dock.push_nv12`` and
 ``Dock.render_async`` time the worker's host work per frame, number the
 frames as the dock consumes them and make the ROI drag's mouse calls before
@@ -25,8 +28,30 @@ import time
 
 import torch
 
-from . import content
+from . import content, screen
 from .traffic import generator
+
+# a configuration file's "content": the pool maker of its frames
+POOLS = {"camera": content.frame_pool, "screen": screen.frame_pool}
+CONFIG_KEYS = {"source", "deployment", "frame", "content", "streams", "queue_depth", "dock",
+               "roi", "assumed", "reduced"}
+
+
+def config_problems(cfg: dict) -> list:
+    """What in a configuration file the harness would not run as written:
+    an unknown top-level key, an unknown picture, and a wire format or
+    range other than the NV12 limited range that ``encode_nv12`` makes and
+    ``push_nv12`` sends."""
+    out = [f"unknown key {k!r}" for k in sorted(set(cfg) - CONFIG_KEYS)]
+    if cfg.get("content", "camera") not in POOLS:
+        out.append(f"content {cfg['content']!r} is not one of {sorted(POOLS)}")
+    f = cfg.get("frame", {})
+    if f.get("format") != "nv12":
+        out.append(f"frame.format {f.get('format')!r}: only nv12 is fed")
+    if f.get("range") != "limited":
+        out.append(f"frame.range {f.get('range')!r}: only limited is fed")
+    return out
+
 
 class Record:
     """One frame of one stream, from its due time to its panel on the host."""
@@ -187,14 +212,18 @@ class Cell:
     """A cell's streams, built and warmed in set-up, then driven for a window."""
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device, docks: bool = True):
+        bad = config_problems(cfg)
+        if bad:
+            raise ValueError("configuration: " + "; ".join(bad))
         self.cfg, self.t, self.seed = cfg, traffic, seed
         self.device = torch.device(device)
         f = cfg["frame"]
         self.h, self.w = f["height"], f["width"]
         n_streams = cfg["streams"]
         n_pool = generator.pool_frames(traffic, n_streams, self.h * self.w * 3 // 2)
-        self.pools = [content.frame_pool(seed, s, n_pool, self.h, self.w, f["colorspace"],
-                                         self.device) for s in range(n_streams)]
+        make = POOLS[cfg.get("content", "camera")]
+        self.pools = [make(seed, s, n_pool, self.h, self.w, f["colorspace"], self.device)
+                      for s in range(n_streams)]
         self.drag = None
         if traffic["roi"]["path"] == "drag":
             from .reference.panel import DockReference

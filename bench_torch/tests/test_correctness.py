@@ -36,7 +36,7 @@ def _cell(bench, name):
     return cell, *run.tiny(bench, cell)
 
 
-@pytest.mark.parametrize("name", ["uhd60.settled", "uhd60.drag"])
+@pytest.mark.parametrize("name", ["uhd60.settled", "uhd60.drag", "screen1440.settled"])
 def test_control_is_not_correct(bench, name):
     cell, cfg, traffic = _cell(bench, name)
     c = serve.Cell(cfg, traffic, 5, "cpu", docks=False)
@@ -63,8 +63,12 @@ def _measure(bench, name):
     return run.measure(bench, cell, 3, 3.0, False, "cpu", cfg, traffic)
 
 
-def test_sound_run_is_correct(bench):
-    res = _measure(bench, "uhd60.settled")
+SETTLED = ["uhd60.settled", "screen1440.settled"]
+
+
+@pytest.mark.parametrize("name", SETTLED)
+def test_sound_run_is_correct(bench, name):
+    res = _measure(bench, name)
     assert res["correct"], res["checks"]
 
 
@@ -78,7 +82,8 @@ def _patch_analyze(monkeypatch, fn):
         monkeypatch.setattr(mod, "analyze", fn(mod.analyze))
 
 
-def test_stale_state_is_not_correct(bench, monkeypatch):
+@pytest.mark.parametrize("name", SETTLED)
+def test_stale_state_is_not_correct(bench, monkeypatch, name):
     from obs_color_monitor_tpu_torch import graphs
 
     call = graphs.CapturedStep.__call__
@@ -89,17 +94,18 @@ def test_stale_state_is_not_correct(bench, monkeypatch):
         return first.setdefault(id(self), out)
 
     monkeypatch.setattr(graphs.CapturedStep, "__call__", stale)
-    assert not _measure(bench, "uhd60.settled")["correct"]
+    assert not _measure(bench, name)["correct"]
 
 
-def test_half_frame_left_out_is_not_correct(bench, monkeypatch):
+@pytest.mark.parametrize("name", SETTLED)
+def test_half_frame_left_out_is_not_correct(bench, monkeypatch, name):
     def half(analyze):
         def f(x, *a, **k):
             return analyze(x[: x.shape[0] // 2], *a, **k)
         return f
 
     _patch_analyze(monkeypatch, half)
-    assert not _measure(bench, "uhd60.settled")["correct"]
+    assert not _measure(bench, name)["correct"]
 
 
 def test_altered_count_is_not_correct(bench, monkeypatch):

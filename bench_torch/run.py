@@ -160,7 +160,9 @@ def measure(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
     result["correct"] = all(v <= lim for v, lim in nums.values())
     result["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in nums.items()}
     print(f"checked {verdict['checked']} of {verdict['sampled']} sampled frames "
-          f"in {t_check:.1f} s",
+          f"in {t_check:.1f} s: {verdict['analysed']} analysed, {verdict['skipped']} skipped; "
+          f"refused on a full queue and checked in the next frame's place: "
+          f"{verdict['refused']}, with no frame left to take it: {verdict['unplaced']}",
           file=sys.stderr, flush=True)
     return result
 
@@ -225,9 +227,11 @@ def control(bench: dict, cell: dict, seed: int) -> dict:
     nums = dict.fromkeys(("panel_bytes_off", "capture_bytes_off", "counts_off"), 0)
     for s in range(cfg["streams"]):
         n_pool = len(c.pools[s])
+        pools = [k % n_pool for k in range(traffic["warmup_frames"])] + [
+            i % n_pool for i in range(n_plan)]
         for i in sorted(generator.sample(traffic, seed, s, cfg["streams"], n_plan)):
             j = traffic["warmup_frames"] + i
-            args = (s, i % n_pool, (i - 1) % n_pool, j, tms[j])
+            args = (s, pools, j, tms[j])
             panel, f = got.of(*args)
             for k, v in check.compare(want.of(*args), panel.cpu().numpy(),
                                       (f.capture.permute(2, 0, 1), f.vs, f.wv, f.hi),

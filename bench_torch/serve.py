@@ -39,12 +39,16 @@ CONFIG_KEYS = {"source", "deployment", "frame", "content", "streams", "queue_dep
 
 def config_problems(cfg: dict) -> list:
     """What in a configuration file the harness would not run as written:
-    an unknown top-level key, an unknown picture, and a wire format or
-    range other than the NV12 limited range that ``encode_nv12`` makes and
-    ``push_nv12`` sends."""
+    an unknown top-level key, an unknown picture, an interleave other than
+    the 0 or 1 the hub takes (``ROIConfig`` clamps any other), and a wire
+    format or range other than the NV12 limited range that ``encode_nv12``
+    makes and ``push_nv12`` sends."""
     out = [f"unknown key {k!r}" for k in sorted(set(cfg) - CONFIG_KEYS)]
     if cfg.get("content", "camera") not in POOLS:
         out.append(f"content {cfg['content']!r} is not one of {sorted(POOLS)}")
+    interleave = cfg.get("roi", {}).get("interleave")
+    if interleave not in (0, 1):
+        out.append(f"roi.interleave {interleave!r}: the hub takes 0 or 1")
     f = cfg.get("frame", {})
     if f.get("format") != "nv12":
         out.append(f"frame.format {f.get('format')!r}: only nv12 is fed")
@@ -134,6 +138,8 @@ class Stream:
         self.records: list[Record] = []
         self.current: Record | None = None
         self.host = None  # the sink's pinned panel buffer
+        self.carry = None  # a refused checked frame's panel buffer, for the next frame taken
+        self.refused_checked = 0
         self._wrap()
 
     def _wrap(self) -> None:
@@ -183,12 +189,24 @@ class Stream:
             rec.stats = (r.planes, r.vs_counts, r.wv_rgb, r.hi_rgb)
 
     def push(self, rec: Record) -> None:
+        """Offer ``rec``'s frame to the driver.  A frame the driver refuses
+        on a full queue is dropped, as the reference's graphics thread drops
+        it (src/common.c:260-268): it is never consumed and no panel is owed
+        for it.  A checked frame that is refused is no longer checked; its
+        panel buffer passes to the next window frame offered that is not
+        checked already, and on again if that one is refused too, so that
+        a host stall costs the check no frame."""
+        if self.carry is not None and rec.window and rec.panel is None:
+            rec.panel, rec.sampled, self.carry = self.carry, True, None
         buf = self.pool[rec.pool]
         rec.t_push = time.perf_counter()
         self.fifo.append(rec)
         if not self.driver.push_nv12(buf[:self.h], buf[self.h:]):
             self.fifo.pop()
             rec.dropped = True
+            if rec.sampled:
+                self.carry, rec.panel, rec.sampled = rec.panel, None, False
+                self.refused_checked += 1
         rec.t_pushed = time.perf_counter()
         self.records.append(rec)
 
@@ -296,8 +314,9 @@ class Cell:
 
     def window(self, seconds: float, tracer=None) -> dict:
         """Drive every stream for ``seconds`` and wait until every frame
-        pushed has landed or failed.  Returns the window's timing.  The
-        garbage collector's pauses in the window are timed."""
+        pushed has landed or failed.  Returns the window's timing and each
+        dock's frames skipped in it (``hub.frames_skipped``).  The garbage
+        collector's pauses in the window are timed."""
         pauses: list = []
         started: list = []
 
@@ -311,6 +330,7 @@ class Cell:
         checked = self._checked_buffers(n_plan)
         gc.callbacks.append(on_gc)
         stage0 = [dict(s.driver.staging) for s in self.streams]
+        skip0 = [s.dock.hub.frames_skipped for s in self.streams]
         route0 = self._counter()
         t_ready = time.perf_counter()  # set-up ends; the profiler's start is the benchmark's
         if tracer is not None:
@@ -334,6 +354,7 @@ class Cell:
                    for k in ("uploads", "host_copy_s", "wait_s")}
         return {"t_ready": t_ready, "t0": t0, "t_end": t_end, "t_close": t_close, "n_plan": n_plan,
                 "staging": staging, "route_launches": self._counter() - route0,
+                "skipped": [s.dock.hub.frames_skipped - k for s, k in zip(self.streams, skip0)],
                 "errors": sum(s.driver.stats["errors"] for s in self.streams), "trace": trace}
 
     def window_records(self) -> list:

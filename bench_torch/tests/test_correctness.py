@@ -14,6 +14,8 @@ Run on the CPU, at a tiny frame size, from the repository's root:
   of the analysis, and one answer altered where it is produced (a
   vectorscope count).  The cells take one chip, so there is no exchange
   between chips to leave out.
+
+``test_interleave.py`` holds the check to the interleave's rules.
 """
 
 from __future__ import annotations
@@ -36,16 +38,18 @@ def _cell(bench, name):
     return cell, *run.tiny(bench, cell)
 
 
-@pytest.mark.parametrize("name", ["uhd60.settled", "uhd60.drag", "screen1440.settled"])
+@pytest.mark.parametrize("name", ["uhd60.settled", "uhd60.drag", "screen1440.settled",
+                                  "uhd60.interleave1"])
 def test_control_is_not_correct(bench, name):
     cell, cfg, traffic = _cell(bench, name)
     c = serve.Cell(cfg, traffic, 5, "cpu", docks=False)
     want, ctrl, same = (check.Expect(c, "cpu", dt) for dt in
                         (torch.float32, torch.bfloat16, torch.float32))
     tms = check.clock(40)
+    pools = [j % 3 for j in range(40)]
     off = dict.fromkeys(("panel_bytes_off", "capture_bytes_off", "counts_off"), 0)
     for j in range(traffic["warmup_frames"], traffic["warmup_frames"] + 4):
-        args = (0, j % 3, (j - 1) % 3, j, tms[j])
+        args = (0, pools, j, tms[j])
         for got, into in ((ctrl, off), (same, None)):
             panel, f = got.of(*args)
             nums = check.compare(want.of(*args), panel.numpy(),
@@ -63,7 +67,7 @@ def _measure(bench, name):
     return run.measure(bench, cell, 3, 3.0, False, "cpu", cfg, traffic)
 
 
-SETTLED = ["uhd60.settled", "screen1440.settled"]
+SETTLED = ["uhd60.settled", "screen1440.settled", "uhd60.interleave1"]
 
 
 @pytest.mark.parametrize("name", SETTLED)

@@ -11,8 +11,8 @@ Run on the CPU from the repository's root:
 - the desktop's capture piles into few vectorscope bins, the camera's
   does not (``skew``);
 - a configuration file that the harness would not run as written (an
-  unknown key or picture, a wire format or range it does not feed) fails
-  the schema check and the run.
+  unknown key or picture, an interleave the hub does not take, a wire
+  format or range it does not feed) fails the schema check and the run.
 """
 
 from __future__ import annotations
@@ -75,6 +75,7 @@ def test_screen_piles_into_few_bins():
     ({"content": "webcam"}, "content 'webcam'"),
     ({"frame": {"format": "p010"}}, "frame.format 'p010'"),
     ({"frame": {"range": "full"}}, "frame.range 'full'"),
+    ({"roi": {"interleave": 2}}, "roi.interleave 2"),
 ])
 def test_schema_refuses_a_file_it_would_not_run(tmp_path, monkeypatch, change, says):
     bench = spec.load_benchmark()

@@ -31,7 +31,11 @@ any failure raises and the exit code is non-zero:
    3840x2160 and scale 1 on 1920x1080 and odd shapes, and one 270x480 case
    against the golden model; KC (the dynamic dock step's panel assembly)
    on the 4K dock's images against its plain version at the drag's rects
-   and the edge rects, in int32 and in 64-bit index math;
+   and the edge rects, in int32 and in 64-bit index math; KR (the stats
+   scopes' images in one launch) on the 4K camera dock's and the 2560x1440
+   desktop dock's job tables, and over every display mode, component
+   family, colour type, level mode, logscale and zoom at the waveform
+   widths 1920, 1280 and 131, against the plain chain;
 4. the main paths, each on the card and on the CPU, every output field
    equal, the launch counters set to 0 just before each path and read just
    after it (every kernel of the path must have launched):
@@ -95,6 +99,8 @@ any failure raises and the exit code is non-zero:
    graph replay (input copies and output copies included), per frame: the
    4K full step, the 4K NV12 dock step, its dynamic-ROI form (also with
    its panel assembled by the plain version, the torch ops KC replaces),
+   KR on the 4K dock's and the desktop dock's job tables (the waveform
+   1920 and 1280 wide) beside the plain chain of renders it replaces,
    the settled Dock and the batched step at B = 1, 2, 4; each kernel beside its plain
    version and, where one exists, the one PyTorch call that computes the
    same function (K2 and K3 also in rect mode, K2 also on a flat frame, K6
@@ -647,7 +653,7 @@ def read_counts() -> dict:
     """Every kernel wrapper's launch count; K2's kernel pair counts as
     ``both``, its kernels alone as K7 / K8."""
     from obs_color_monitor_tpu_torch.ops import (
-        compose, decode, fused_overlays, pipeline, scope_stats)
+        compose, decode, fused_overlays, pipeline, render, scope_stats)
 
     vs = scope_stats.vs_wv_counts
     return {
@@ -664,12 +670,13 @@ def read_counts() -> dict:
         "K4": decode.nv12_decode.launches,
         "K5": decode.nv12_16_decode.launches,
         "KC": compose.compose_dyn_panel.launches,
+        "KR": render.draw_stat_images.launches,
     }
 
 
 def reset_counts() -> None:
     from obs_color_monitor_tpu_torch.ops import (
-        compose, decode, fused_overlays, pipeline, scope_stats)
+        compose, decode, fused_overlays, pipeline, render, scope_stats)
 
     vs = scope_stats.vs_wv_counts
     pipeline.frame_pass.launches = pipeline.frame_pass.launches_vec = 0
@@ -679,6 +686,7 @@ def reset_counts() -> None:
     fo.launches = fo.launches_rect = fo.launches_vec = 0
     decode.nv12_decode.launches = decode.nv12_16_decode.launches = 0
     compose.compose_dyn_panel.launches = 0
+    render.draw_stat_images.launches = 0
 
 
 def run_path(name: str, build, host_frames: list, fmt: str, device, needs: tuple,
@@ -795,7 +803,7 @@ def phase_dynamic_dock(device, h=H4K, w=W4K, roi=ROI, frames=DRAG_FRAMES) -> dic
         outs.append(step(x, 1.0, r).to_numpy())
         per_frame.append({k: v - before[k] for k, v in read_counts().items()})
     counts = path_counts(name, read_counts(),
-                         ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect", "KC"), device)
+                         ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect", "KC", "KR"), device)
     if any(c != per_frame[0] for c in per_frame):
         raise AssertionError(f"path {name}: launches differ between rects: {per_frame}")
     print(f"path {name}: the same launches for each of {frames} rects: {per_frame[0]}",
@@ -912,6 +920,73 @@ def phase_compose(device, err: dict, h=H4K, w=W4K, roi=ROI) -> None:
           "and 64-bit", flush=True)
 
 
+def dock_jobs(device, h: int, w: int, seed: int) -> list:
+    """The stats job table of the benchmark's settled dock at (h, w): NV12,
+    stats at target_scale 2, focus peaking shown, the reference's default
+    scopes; each stats scope's own ``stat_job`` once the route is settled."""
+    dock = settled_dock(device, make_nv12(h, w, seed))
+    return [dock.scopes[n].stat_job() for n in ("vectorscope", "waveform", "histogram")]
+
+
+def render_cases(device, width: int, seed: int) -> list:
+    """KR's job tables over every display mode x component family x
+    colour type x level mode (a device pixel count in ratio mode) x
+    logscale x zoom, on random counts with the scopes' graticules."""
+    import itertools
+
+    import torch
+
+    from obs_color_monitor_tpu_torch import config as cfg
+    from obs_color_monitor_tpu_torch.ops import graticule as gr
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    rng = np.random.default_rng(seed)
+    on = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    n_px = torch.tensor(width * 540, dtype=torch.int64, device=device)
+    tables = []
+    for display, comps, white, (fixed, ratio), logscale, zoom in itertools.product(
+            (0, 1, 2), (cfg.Components.RGB, cfg.Components.Y, cfg.Components.UV,
+                        cfg.Components.YUV), (False, True), ((0, 0), (500, 0), (0, 15)),
+            (False, True), (1.0, 2.0)):
+        n, sel, yuv = comps.n_components, comps.channel_select(), comps.is_yuv
+        hi = rng.integers(0, 20000, (3, 256)).astype(np.int32)
+        tables.append([
+            rd.vectorscope_job(on(rng.integers(0, 256, (256, 256), np.uint8)),
+                               on(gr.vectorscope_graticule(1, white, 2)), 15, 2, white, zoom),
+            rd.waveform_job(on(rng.integers(0, 256, (3, 256, width), np.uint8)),
+                            on(gr.waveform_graticule(4, width, display, n)), sel, 20, display,
+                            n, yuv),
+            rd.histogram_job(on(hi), on(gr.histogram_graticule(3, 10.0, 200, display, n, fixed,
+                                                               ratio, logscale)),
+                             sel, n_px, fixed, ratio, logscale, 200, display, n, yuv)])
+    return tables
+
+
+def phase_render(device, err: dict) -> None:
+    """KR against the plain chain of renders on the same jobs: the 4K
+    camera dock's and the 2560x1440 desktop dock's tables (the waveform
+    1920 and 1280 wide), then every mode at the waveform widths 1920, 1280
+    and 131; one launch a table."""
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    tables = [dock_jobs(device, H4K, W4K, 760), dock_jobs(device, 1440, 2560, 761)]
+    for k, width in enumerate((1920, 1280, 131)):
+        tables += render_cases(device, width, 770 + k)
+    worst = 0
+    for jobs in tables:
+        n = rd.draw_stat_images.launches
+        got = rd.draw_stat_images(jobs)
+        if rd.draw_stat_images.launches - n != (device.type == "cuda"):
+            raise AssertionError("KR: not one launch a table")
+        for job, img in zip(jobs, got):
+            worst = max(worst, max_abs_err(img.cpu(), rd.draw_stat_plain(job).cpu()))
+    err["KR"] = worst
+    if worst:
+        raise AssertionError(f"KR: an image differs from the plain chain's by {worst}")
+    print(f"KR: the 4K and desktop docks' images and {len(tables) - 2} tables of every mode "
+          "equal to the plain chain", flush=True)
+
+
 def phase_stream_dock(device, h=H4K, w=W4K, roi=ROI, frames=DRAG_FRAMES) -> dict:
     """The streaming ``models.Dock`` fed NV12 frames through push_nv12 and
     render, a move-drag on its ROI band across the middle frames, against
@@ -1000,24 +1075,25 @@ def dock_paths(h=H4K, w=W4K, roi=ROI):
     rgba = [make_frame(h, w, "random", 300)]
     return [
         ("dock nv12", dock(input_format="nv12", dock=all6),
-         [make_nv12(h, w, 200 + i) for i in range(4)], "nv12", ("K1", "K2", "K3", "K4"), "K2"),
+         [make_nv12(h, w, 200 + i) for i in range(4)], "nv12", ("K1", "K2", "K3", "K4", "KR"),
+         "K2"),
         ("dock p010", dock(input_format="nv12", nv12_shift=8, dock=all6),
          [make_nv12(h, w, 210 + i, 10, True) for i in range(2)], "nv12",
-         ("K1", "K2", "K3", "K5"), "K2"),
+         ("K1", "K2", "K3", "K5", "KR"), "K2"),
         ("dock rgba roi_rect", dock(dock=all6, roi_rect=roi,
                                     histogram=HistogramConfig(components=Components.YUV)),
-         rgba, "rgba", ("K1", "K3", "K6", "K8"), "K6"),
+         rgba, "rgba", ("K1", "K3", "K6", "K8", "KR"), "K6"),
         ("dock full-res overlays", dock(dock=all6, overlays_on_capture=False),
-         rgba, "rgba", ("K1", "K2", "K3"), "K2"),
+         rgba, "rgba", ("K1", "K2", "K3", "KR"), "K2"),
         ("dock vectorscope only", dock(dock=vs_only),
-         rgba, "rgba", ("K1", "K3", "K7"), "K2"),
+         rgba, "rgba", ("K1", "K3", "K7", "KR"), "K2"),
         ("full_step nv12", lambda d: make_full_step(h, w, scale=2, input_format="nv12",
                                                     device=d),
-         [make_nv12(h, w, 220)], "nv12", ("K1", "K2", "K4"), "K2"),
+         [make_nv12(h, w, 220)], "nv12", ("K1", "K2", "K4", "KR"), "K2"),
         # float32 log levels on the card against the CPU's
         ("full_step logscale", lambda d: make_full_step(h, w, scale=2, histogram=logscale,
                                                         device=d),
-         rgba, "rgba", ("K1", "K2"), "K2"),
+         rgba, "rgba", ("K1", "K2", "KR"), "K2"),
     ]
 
 
@@ -1063,13 +1139,13 @@ def phase_captured(device, h=H4K, w=W4K, roi=ROI) -> dict:
     steps = [
         ("captured full_step packed", lambda d: make_full_step(
             h, w, scale=2, input_format="packed", device=d), packed, "packed", (),
-         "zebra", ("K1", "K2")),
+         "zebra", ("K1", "K2", "KR")),
         ("captured dock nv12", lambda d: make_dock_step(
             h, w, scale=2, input_format="nv12", dock=all6, device=d), nv12, "nv12", (),
-         "panel", ("K1", "K2", "K3", "K4")),
+         "panel", ("K1", "K2", "K3", "K4", "KR")),
         ("captured dock nv12 dynamic_roi", lambda d: make_dock_step(
             h, w, scale=2, input_format="nv12", dock=all6, dynamic_roi=True, device=d), nv12,
-         "nv12", (roi,), "panel", ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect")),
+         "nv12", (roi,), "panel", ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect", "KR")),
     ]
     by_path = {}
     for name, build, host, fmt, extra, field, needs in steps:
@@ -1129,7 +1205,7 @@ def phase_captured(device, h=H4K, w=W4K, roi=ROI) -> dict:
             panels.append(d.render_async())
             if card and i >= warm:
                 counts_i = {k: v - before[k] for k, v in read_counts().items()}
-                if device.type == "cuda" and (counts_i["K3"] != 1 or counts_i["K1"] != 1):
+                if device.type == "cuda" and any(counts_i[k] != 1 for k in ("K1", "K3", "KR")):
                     raise AssertionError(f"{name} frame {i}: {counts_i}")
                 total = {k: v + counts_i[k] for k, v in total.items()}
             if eager is not None and not torch.equal(eager, panels[-1]):
@@ -1139,7 +1215,7 @@ def phase_captured(device, h=H4K, w=W4K, roi=ROI) -> dict:
         if i >= warm:
             first = first if first is not None else panels[0]
             outs.append({"panel": panels[0].cpu().numpy()})
-    counts = path_counts(name, total, ("K1", "K2", "K3", "K4"), device)
+    counts = path_counts(name, total, ("K1", "K2", "K3", "K4", "KR"), device)
     if docks[0]._settled is None or (device.type == "cuda" and docks[0]._settled.graphs != 1):
         raise AssertionError(f"{name}: the settled route did not replay its graph")
     check_clocks(name, outs, "panel")
@@ -1187,18 +1263,19 @@ def host_args_paths(h: int, w: int, roi) -> list:
 
     return [
         ("host full_step packed", lambda d: make_full_step(
-            h, w, scale=2, input_format="packed", device=d), [(packed, clock)], ("K1", "K2")),
+            h, w, scale=2, input_format="packed", device=d), [(packed, clock)],
+         ("K1", "K2", "KR")),
         ("host dock nv12", dock(input_format="nv12"), [(nv12, clock)],
-         ("K1", "K2", "K3", "K4")),
+         ("K1", "K2", "K3", "K4", "KR")),
         ("host dock p010", dock(input_format="nv12", nv12_shift=8), [(p010, clock)],
-         ("K1", "K2", "K3", "K5")),
+         ("K1", "K2", "K3", "K5", "KR")),
         ("host dock nv12 dynamic_roi", dock(input_format="nv12", dynamic_roi=True),
          [(nv12, clock, np.asarray(roi, np.int32)),
           (nv12, clock, tuple(np.int64(v) for v in roi))],
-         ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect")),
+         ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect", "KR")),
         ("host batched packed B=2", lambda d: make_batched_step(
             h, w, scale=2, input_format="packed", device=d),
-         [(batch, np.asarray([0.0667, 1.3167], np.float32))], ("K1", "K2")),
+         [(batch, np.asarray([0.0667, 1.3167], np.float32))], ("K1", "K2", "KR")),
     ]
 
 
@@ -1856,8 +1933,8 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def settled_dock(device, nv12):
-    """A streaming ``models.Dock`` on 4K NV12 frames (all six scopes) with
-    its settled route captured: three push + render frames."""
+    """A streaming ``models.Dock`` on NV12 frames (all six scopes) with its
+    settled route captured: three push + render frames."""
     from obs_color_monitor_tpu_torch import DockConfig, ROIConfig
     from obs_color_monitor_tpu_torch.models import Dock
 
@@ -2011,6 +2088,20 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     # per panel pixel; ~100 integer operations a pixel
     n_px = kc_args[0].out_w * kc_args[0].out_h
     bounds["KC"] = bound(n_px * 4 * 2, n_px * 100)
+    # KR alone on the 4K dock's and the desktop dock's job tables, and the
+    # plain chain it replaces on the card; its bytes: the counts and the
+    # graticules read once, the images written once
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    for key, (hh, ww) in (("kr", (H4K, W4K)), ("kr_1440", (1440, 2560))):
+        jobs = dock_jobs(device, hh, ww, 780)
+        fns[key] = lambda j=jobs: rd.draw_stat_images(j)
+        fns[key + "_plain"] = lambda j=jobs: [rd.draw_stat_plain(x) for x in j]
+        nbytes = sum(j.counts.numel() * j.counts.element_size()
+                     + 4 * np.prod(rd.stat_image_shape(j))
+                     * (1 + (j.graticule is not None)) for j in jobs)
+        bounds["KR" if key == "kr" else "KR desktop"] = bound(
+            nbytes, sum(30 * np.prod(rd.stat_image_shape(j)) for j in jobs))
     # the settled streaming Dock: a push and a render (the replay and the
     # publication), and its captured stream step's function eagerly
     dock = settled_dock(device, (y, uv))
@@ -3024,6 +3115,9 @@ KERNELS = [  # id, wrapper, source, TPU kernel it replaces, timing key, library 
      "ops/pallas_stats.py:419", "k9", "k9_library"),
     ("KC", "compose_dyn_panel", "dock_compose.cu",
      "dock_step.py:485-710 (step_dyn's composite in XLA ops; no Pallas kernel)", "kc", None),
+    ("KR", "draw_stat_images", "scope_render.cu",
+     "ops/render.py (the stats renders, graticule blend and zoom in XLA ops; no Pallas "
+     "kernel)", "kr", None),
 ]
 # K9 runs the kernels of two sources; K2 and K3 also run with a dynamic rect
 SOURCES = {"K9": ("frame_pipeline.cu", "scope_stats.cu")}
@@ -3091,6 +3185,11 @@ def kernel_line(launches: dict, by_path: dict, err: dict, t: dict, bounds: dict,
             entry.update({"flat_ms": t["k2_flat"], "flat_device_ms": dev["k2_flat"][0],
                           "flat_device_span_ms": dev["k2_flat"][1],
                           "flat_graph_ms": dev["k2_flat"][2]})
+        if kid == "KR":
+            entry.update({"desktop_ms": t["kr_1440"], "desktop_plain_ms": t["kr_1440_plain"],
+                          "desktop_device_ms": dev["kr_1440"][0],
+                          "desktop_graph_ms": dev["kr_1440"][2],
+                          "desktop_bound_ms": bounds["KR desktop"][0]})
         if kid in SOURCES:
             entry["sources"] = [csrc + f for f in SOURCES[kid]]
         if kid in BATCHED:
@@ -3145,6 +3244,7 @@ def main() -> int:
     phase_rect_kernels(device, err)
     phase_ingest(device, err)
     phase_compose(device, err)
+    phase_render(device, err)
     torch.cuda.synchronize()
     by_path = {**phase_main_path(device), **phase_dock_paths(device),
                **phase_ingest_path(device), **phase_dynamic_dock(device),

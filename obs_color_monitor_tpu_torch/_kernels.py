@@ -50,6 +50,7 @@ _SIGNATURES = {
     "ocm_nv12_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],
     "ocm_nv12_16_decode": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],
     "ocm_dock_compose": [_VP, _I, _VP, _VP, _VP],
+    "ocm_scope_render": [_VP, _I, _VP],
 }
 
 _lock = threading.Lock()

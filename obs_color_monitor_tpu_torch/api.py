@@ -40,7 +40,7 @@ from .ops.convert import _as_device_arg, nv12_to_packed, packed_view, planarize_
 from .ops.overlays import falsecolor_lut_planes
 from .ops.pipeline import frame_pass, stats_inputs
 from .ops.scope_stats import histogram_from_waveform, vs_wv_counts
-from .ops.stats import apply_channel_select, histogram_hi_max, histogram_levels, saturate_u8
+from .ops.stats import apply_channel_select, saturate_u8
 
 INPUT_FORMATS = ("rgba", "packed", "planar", "nv12")
 
@@ -161,30 +161,27 @@ def _step_parts(
 
     def glue(x, vs_i32, wv_i32, hi_wv_i32, zb_img, fc_img, fp_img) -> ScopeOutputs:
         vs_u8 = saturate_u8(vs_i32)
-        vs_img = render_ops.render_vectorscope(
-            vs_u8, intensity=vs_cfg.intensity, cs=cs, white=vs_cfg.color_type == 0
-        )
-        wv_counts = apply_channel_select(saturate_u8(wv_i32), wv_sel)
-        wv_img = render_ops.render_waveform(
-            wv_counts,
-            intensity=wv_cfg.intensity,
-            display=int(wv_cfg.display),
-            n_components=wv_cfg.components.n_components,
-            yuv_mode=wv_yuv,
-        )
-        hi_counts = apply_channel_select(histogram_from_waveform(hi_wv_i32), sel)
-        hi = histogram_hi_max(
-            hi_counts, sel, n_scaled, hi_cfg.level_fixed, hi_cfg.level_ratio_permille
-        )
-        levels, hi_eff = histogram_levels(hi_counts, hi, sel, hi_cfg.logscale)
-        hi_img = render_ops.render_histogram(
-            levels,
-            hi_eff,
-            level_height=hi_cfg.level_height,
-            display=int(hi_cfg.display),
-            n_components=hi_cfg.components.n_components,
-            yuv_mode=hi_yuv,
-        )
+        wv_u8 = saturate_u8(wv_i32)
+        hi_raw = histogram_from_waveform(hi_wv_i32)
+        # the three images as one job table: KR's one launch on a card
+        vs_img, wv_img, hi_img = render_ops.draw_stat_images([
+            render_ops.vectorscope_job(vs_u8, None, intensity=vs_cfg.intensity, cs=cs,
+                                       white=vs_cfg.color_type == 0),
+            render_ops.waveform_job(wv_u8, None, wv_sel, intensity=wv_cfg.intensity,
+                                    display=int(wv_cfg.display),
+                                    n_components=wv_cfg.components.n_components,
+                                    yuv_mode=wv_yuv),
+            render_ops.histogram_job(hi_raw, None, sel, n_scaled,
+                                     level_fixed=hi_cfg.level_fixed,
+                                     level_ratio_permille=hi_cfg.level_ratio_permille,
+                                     logscale=hi_cfg.logscale,
+                                     level_height=hi_cfg.level_height,
+                                     display=int(hi_cfg.display),
+                                     n_components=hi_cfg.components.n_components,
+                                     yuv_mode=hi_yuv),
+        ])
+        wv_counts = apply_channel_select(wv_u8, wv_sel)
+        hi_counts = apply_channel_select(hi_raw, sel)
         if use_lut:
             planes = planarize_packed(x) if packed else x
             fc_img = falsecolor_lut_planes(planes, lut, cs=fc_cs, lut_n=lut.shape[0])

@@ -63,7 +63,6 @@ from .ops.graticule import (
     waveform_graticule,
 )
 from .ops.overlays import falsecolor_lut_planes
-from .ops.stats import apply_channel_select, histogram_hi_max, histogram_levels
 
 # Dock scope order (reference src/scope-widget.cpp:19-25), copied from
 # ``obs_color_monitor_tpu/models/dock.py:40``.
@@ -404,7 +403,9 @@ def make_dock_step(
     rect as 4 ints written with ``fill_``) and returns fresh outputs.  ``step.eager`` is the uncaptured
     step; ``step.rects`` and ``step.dims`` are the static layout; a dynamic
     step's ``step.table`` is its panel's slot table (``ops/compose``) and
-    ``step.fused_compose`` says whether one kernel assembles the panel.
+    ``step.fused_compose`` says whether one kernel assembles the panel;
+    ``step.draws_stats`` says whether it draws a stats scope's image
+    (``_stat_renders`` builds a job).
     """
     from .graphs import captured
 
@@ -504,49 +505,41 @@ def make_dock_step(
     need_vs = dk.show_vectorscope
     need_wv = dk.show_waveform
     need_hi = dk.show_histogram
+    draws_stats = need_vs or need_wv or need_hi
     frame_shape = (height, width)
 
     def _stat_renders(res, n_pixels, images):
         """Vectorscope/waveform/histogram renders and the step's raw count
         outputs (``dock_step.make_dock_step._stat_renders``): the drawn
-        images apply the channel selection, the counts do not."""
+        images apply the channel selection, the counts do not.  The shown
+        scopes' images are one job table, drawn in one launch on a card
+        (``render_ops.draw_stat_images``)."""
+        jobs = {}
         if need_vs:
-            vs_img = render_ops.render_vectorscope(
-                res.vs_counts, intensity=vs_cfg.intensity, cs=csi,
+            jobs["vectorscope"] = render_ops.vectorscope_job(
+                res.vs_counts, vs_grat, intensity=vs_cfg.intensity, cs=csi,
                 white=vs_cfg.color_type == VectorscopeColorType.WHITE,
-            )
-            if vs_grat is not None:
-                vs_img = render_ops.blend_overlay(vs_img, vs_grat)
-            images["vectorscope"] = render_ops.zoom_center(vs_img, zoom=round(vs_cfg.zoom, 3))
+                zoom=round(vs_cfg.zoom, 3))
             vs_counts = res.vs_counts
         else:
             vs_counts = torch.zeros((256, 256), dtype=torch.uint8, device=device)
         if need_wv:
             wv_raw = res.wv_yuv if wv_yuv else res.wv_rgb
-            wv_img = render_ops.render_waveform(
-                apply_channel_select(wv_raw, wv_sel), intensity=wv_cfg.intensity,
-                display=int(wv_cfg.display), n_components=wv_n, yuv_mode=wv_yuv,
-            )
-            if wv_grat is not None:
-                wv_img = render_ops.blend_overlay(wv_img, wv_grat)
-            images["waveform"] = wv_img
+            jobs["waveform"] = render_ops.waveform_job(
+                wv_raw, wv_grat, wv_sel, intensity=wv_cfg.intensity,
+                display=int(wv_cfg.display), n_components=wv_n, yuv_mode=wv_yuv)
         else:
             wv_raw = torch.zeros((3, 256, sw), dtype=torch.uint8, device=device)
         if need_hi:
             hi_raw = res.hi_yuv if hi_yuv else res.hi_rgb
-            hi_counts = apply_channel_select(hi_raw, sel)
-            hi = histogram_hi_max(hi_counts, sel, n_pixels, hi_cfg.level_fixed,
-                                  hi_cfg.level_ratio_permille)
-            levels, hi_eff = histogram_levels(hi_counts, hi, sel, hi_cfg.logscale)
-            hi_img = render_ops.render_histogram(
-                levels, hi_eff, level_height=hi_cfg.level_height,
-                display=int(hi_cfg.display), n_components=hi_n, yuv_mode=hi_yuv,
-            )
-            if hi_grat is not None:
-                hi_img = render_ops.blend_overlay(hi_img, hi_grat)
-            images["histogram"] = hi_img
+            jobs["histogram"] = render_ops.histogram_job(
+                hi_raw, hi_grat, sel, n_pixels, level_fixed=hi_cfg.level_fixed,
+                level_ratio_permille=hi_cfg.level_ratio_permille, logscale=hi_cfg.logscale,
+                level_height=hi_cfg.level_height, display=int(hi_cfg.display),
+                n_components=hi_n, yuv_mode=hi_yuv)
         else:
             hi_raw = torch.zeros((3, 256), dtype=torch.int32, device=device)
+        images.update(zip(jobs, render_ops.draw_stat_images(jobs.values())))
         return vs_counts, wv_raw, hi_raw
 
     def source(frame) -> torch.Tensor:
@@ -619,7 +612,7 @@ def make_dock_step(
             )
 
         return captured(step_dyn, device, rects=dict(rects), dims=dict(dims), table=table,
-                        fused_compose=device.type == "cuda")
+                        fused_compose=device.type == "cuda", draws_stats=draws_stats)
 
     def step(frame, tm: float) -> DockStepOutput:
         src = source(frame)
@@ -681,4 +674,4 @@ def make_dock_step(
             hi_counts=hi_counts.to(torch.uint32),
         )
 
-    return captured(step, device, rects=dict(rects), dims=dict(dims))
+    return captured(step, device, rects=dict(rects), dims=dict(dims), draws_stats=draws_stats)

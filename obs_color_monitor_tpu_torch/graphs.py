@@ -29,8 +29,12 @@ What a captured step does on a CUDA device:
   arguments) it runs the step twice on a side stream (the warm-up, which
   builds the kernels and every cached constant), then captures one call
   with ``torch.cuda.graph`` in thread-local mode, so that other threads
-  (a pipeline driver's producer) may go on working meanwhile.  A capture
-  that fails raises: there is no eager fallback;
+  (a pipeline driver's producer) may go on working meanwhile.  Python's
+  cyclic collector is held off during the capture: a dead reference cycle
+  that holds another graph (a Dock and its settled step refer to each
+  other) would destroy that graph mid-capture, which CUDA does not permit
+  and which spoils the capture; the cycle goes at a later collection.  A
+  capture that fails raises: there is no eager fallback;
 * every call copies the arguments in, replays, and returns fresh output
   tensors, one device copy per field, so a result never changes at a later
   call (as JAX's returned arrays do not);
@@ -55,6 +59,7 @@ A host argument never moves a step off its device.
 from __future__ import annotations
 
 import collections
+import gc
 from typing import NamedTuple
 
 import numpy as np
@@ -67,7 +72,7 @@ from .pipeline import profiler
 
 def _counters() -> list:
     """(wrapper, attribute) of every kernel launch counter."""
-    from .ops import compose, decode, fused_overlays, pipeline, scope_stats
+    from .ops import compose, decode, fused_overlays, pipeline, render, scope_stats
 
     vs = scope_stats.vs_wv_counts
     fo = fused_overlays.fused_overlays_planes
@@ -76,7 +81,7 @@ def _counters() -> list:
             (vs, "launches_wv_only"), (vs, "launches_rect"),
             (fo, "launches"), (fo, "launches_rect"), (fo, "launches_vec"),
             (decode.nv12_decode, "launches"), (decode.nv12_16_decode, "launches"),
-            (compose.compose_dyn_panel, "launches")]
+            (compose.compose_dyn_panel, "launches"), (render.draw_stat_images, "launches")]
 
 
 def _read_counters(counters) -> list[int]:
@@ -240,9 +245,16 @@ class CapturedStep:
         warm = _read_counters(counters)
         # thread-local capture: a driver's producer thread may allocate,
         # copy and wait on events while this thread captures, which global
-        # capture forbids to every thread of the process
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outputs = self.eager(*inputs)
+        # capture forbids to every thread of the process.  No collection
+        # meanwhile: a graph destroyed during a capture spoils it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outputs = self.eager(*inputs)
+        finally:
+            if collecting:
+                gc.enable()
         launches = [a - b for a, b in zip(_read_counters(counters), warm)]
         for (obj, name), n in zip(counters, before):
             setattr(obj, name, n)

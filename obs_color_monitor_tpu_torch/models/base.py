@@ -33,6 +33,7 @@ from ..ops.convert import (
     nv12_to_packed,
     planes_to_rgba,
 )
+from ..ops import render as render_ops
 from ..ops.fused import AnalysisResult, analyze
 from ..pipeline import profiler
 
@@ -156,6 +157,11 @@ class Scope:
         return hit
 
     # -- output -------------------------------------------------------------
+    def stat_job(self):
+        """A stats scope's image as a job of ``ops.render.draw_stat_images``
+        (:class:`StatScope`); None here."""
+        return None
+
     def render_image(self) -> Optional[torch.Tensor]:
         """The device-resident (H, W, 4) u8 image, or None before the first
         frame.  Nothing crosses to the host: the dock composites on the
@@ -175,6 +181,38 @@ class Scope:
     @property
     def height(self) -> int:
         raise NotImplementedError
+
+
+class StatScope(Scope):
+    """A scope drawn from its counts (vectorscope, waveform, histogram):
+    its image is its :meth:`stat_job`'s, drawn by
+    ``ops.render.draw_stat_images`` (kernel KR on a card)."""
+
+    def stat_job(self):
+        """This scope's image as a job, or None: bypassed, or nothing
+        published yet."""
+        raise NotImplementedError
+
+    def render_image(self):
+        if self.config.bypass:
+            return self.render_bypass()
+        job = self.stat_job()
+        return None if job is None else render_ops.draw_stat_images([job])[0]
+
+
+def shared_stat_images(scopes) -> dict:
+    """``render_image`` of several stats scopes in one draw: the jobs of
+    the scopes that have one (``Scope.stat_job``: not bypassed, something
+    published) drawn together by ``ops.render.draw_stat_images``, one
+    kernel launch on a card.  Returns {scope: its image}, equal to what its
+    ``render_image`` would return; a scope left out renders on its own
+    route."""
+    jobs = {}
+    for s in scopes:
+        job = s.stat_job()
+        if job is not None:
+            jobs[s] = job
+    return dict(zip(jobs, render_ops.draw_stat_images(jobs.values())))
 
 
 class CaptureHub:

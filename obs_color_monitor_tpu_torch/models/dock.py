@@ -31,7 +31,10 @@ the route taken (``dock.settled``, ``dock.dynamic``, or the hub fan-out
 after a step (``dock.publish``) and the selection outline
 (``dock.indicator``), and ``dock.mouse`` for each mouse call.  Each
 ``dock.dynamic`` frame counts ``compose.fused`` where its step assembles
-the panel in one kernel launch (a card), else ``compose.plain``.
+the panel in one kernel launch (a card), else ``compose.plain``; every
+frame whose panel draws a stats scope (vectorscope, waveform, histogram)
+counts ``render.fused`` where their images take KR's one launch (a card),
+else ``render.plain`` (the torch chain).
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from ..ops.convert import (
 )
 from ..ops.fused import AnalysisResult, analyze
 from ..pipeline import profiler
-from .base import CaptureHub, Needs, Scope, SurfaceData
+from .base import CaptureHub, Needs, Scope, SurfaceData, shared_stat_images
 from .histogram import Histogram
 from .overlays import FalseColor, FocusPeaking, Zebra, shared_overlay_images
 from .roi_interact import DRAG_FIRST, DRAG_MOVE, DRAG_RESIZE, InteractiveROI
@@ -71,7 +74,6 @@ from .vectorscope import Vectorscope
 from .waveform import Waveform
 
 __all__ = ["Dock", "SCOPE_ORDER"]
-
 
 class _NV12Pending(NamedTuple):
     """A deferred NV12 frame: its (y, uv) planes, already on the device,
@@ -336,7 +338,8 @@ class Dock:
                 return panel
             # the frame was processed or skipped: render the published buffers
         self._set_roi_view()
-        panel, self._rects, all_shown = self._composite(cx, cy, shown)
+        panel, self._rects, all_shown, drew_stats = self._composite(cx, cy, shown)
+        self._count_render(drew_stats)
         if all_shown and not any(getattr(self.scopes[n].config, "bypass", False)
                                  for n in shown):
             self._warm = True
@@ -345,14 +348,18 @@ class Dock:
     def _composite(self, cx: int, cy: int, shown: list):
         """The shown scopes' renders of the published buffers, composited:
         (panel, {name: its display rect}, whether every shown scope had
-        data).  Device work only: it reads the scopes' state and changes
-        none (the settled route captures it)."""
+        data, whether it drew a stats scope's image).  Device work only: it
+        reads the scopes' state and changes none (the settled route
+        captures it)."""
         rects = {}
         patches = []
         all_shown = True
         y0 = 0
-        # the overlay scopes on the same planes take one K3 launch together
-        shared = shared_overlay_images([self.scopes[n] for n in shown])
+        # the overlay scopes on the same planes take one K3 launch together,
+        # the stats scopes one KR launch
+        scopes = [self.scopes[n] for n in shown]
+        stats = shared_stat_images(scopes)
+        shared = {**shared_overlay_images(scopes), **stats}
         for k, name in enumerate(shown):
             scope = self.scopes[name]
             img = shared[scope] if scope in shared else scope.render_image()
@@ -390,8 +397,15 @@ class Dock:
             y0 += h_slot
         if not patches:
             black = torch.full((cy, cx), OPAQUE_BLACK, dtype=torch.int32, device=self.device)
-            return black.view(torch.uint8).view(cy, cx, 4), rects, all_shown
-        return compose_vstack(patches, cx, cy), rects, all_shown
+            return black.view(torch.uint8).view(cy, cx, 4), rects, all_shown, bool(stats)
+        return compose_vstack(patches, cx, cy), rects, all_shown, bool(stats)
+
+    def _count_render(self, drew_stats: bool) -> None:
+        """A frame whose panel drew a stats scope's image counts
+        ``render.fused`` (KR's one launch, on a card) or ``render.plain``
+        (the torch chain)."""
+        if drew_stats:
+            profiler.count("render.fused" if self.device.type == "cuda" else "render.plain")
 
     def _frame_dims(self, frame) -> tuple[int, int]:
         """(h, w) of a pending frame: NV12, packed (H, W) or (H, W, 4)."""
@@ -465,6 +479,7 @@ class Dock:
             self._settled = self._settled_step(cx, cy, shown, rect, full, frame)
             self._settled_key = key
         panel, result = self._settled(arg, float(self.zebra.tm), wv._buf[wv._r_buf])
+        self._count_render(self._settled.draws_stats)
         with profiler.span("dock.publish"):
             surface = SurfaceData(result=result, width=rect[2] - rect[0],
                                   height=rect[3] - rect[1], colorspace=hub.colorspace,
@@ -513,12 +528,13 @@ class Dock:
                     c.surface_cb(surface)
                 wv._buf[wv._r_buf] = wv_prev  # the tick-gated read buffer
                 zebra.tm = tm
-                panel, rects, _ = self._composite(cx, cy, shown)
+                panel, rects, _, drew_stats = self._composite(cx, cy, shown)
             finally:
                 for c, buf, w_buf in saved:
                     c._buf, c._w_buf = buf, w_buf
                 zebra.tm = clock
             step.rects = rects
+            step.draws_stats = drew_stats  # what the replays draw: set at capture
             return panel, res
 
         step = captured(settled, self.device, max_graphs=1)
@@ -543,6 +559,7 @@ class Dock:
         step = self._device_step
         # the panel's assembly: KC's one launch on a card, torch ops elsewhere
         profiler.count("compose.fused" if step.fused_compose else "compose.plain")
+        self._count_render(step.draws_stats)
         with profiler.span("dock.publish"):
             hub = self.hub
             # mouse routing follows the step's static bands (the overlay slots'

@@ -15,20 +15,20 @@ import torch
 from ..config import Components, DisplayMode, HistogramConfig
 from ..ops import render as render_ops
 from ..ops.graticule import histogram_graticule
-from ..ops.stats import apply_channel_select, histogram_hi_max, histogram_levels
+from ..ops.stats import apply_channel_select
 from .base import (
     FLAG_CONVERT_RGB,
     FLAG_CONVERT_YUV,
     Needs,
-    Scope,
     StandaloneScopeMixin,
+    StatScope,
     SurfaceData,
 )
 
 HI_SIZE = 256
 
 
-class Histogram(Scope, StandaloneScopeMixin):
+class Histogram(StatScope, StandaloneScopeMixin):
     def __init__(self, config: Optional[HistogramConfig] = None, device="cuda"):
         config = config or HistogramConfig()
         super().__init__(config)
@@ -71,33 +71,27 @@ class Histogram(Scope, StandaloneScopeMixin):
         sel = self.config.components.channel_select()
         return apply_channel_select(v[0], sel).cpu().numpy().astype(np.uint32)
 
-    def render_image(self):
+    def stat_job(self):
+        """The selected counts' hi_max and levels, the render and the
+        graticule as one job."""
         if self.config.bypass:
-            return self.render_bypass()
+            return None
         v = self._read()
         if v is None:
             return None
         counts, n_pixels = v
-        sel = self.config.components.channel_select()
-        counts = apply_channel_select(counts, sel).to(torch.int32)
-        hi = histogram_hi_max(counts, sel, n_pixels, self.config.level_fixed,
-                              self.config.level_ratio_permille)
-        levels, hi_eff = histogram_levels(counts, hi, sel, self.config.logscale)
-        n = self.config.components.n_components
-        img = render_ops.render_histogram(
-            levels, hi_eff, level_height=self.config.level_height,
-            display=int(self.config.display), n_components=n,
-            yuv_mode=self.config.components.is_yuv,
-        )
+        cfg = self.config
+        n = cfg.components.n_components
         key = (
-            self.config.graticule_vertical_lines, self.config.graticule_horizontal_step,
-            self.config.level_height, int(self.config.display), n, self.config.level_fixed,
-            self.config.level_ratio_permille, self.config.logscale,
+            cfg.graticule_vertical_lines, cfg.graticule_horizontal_step, cfg.level_height,
+            int(cfg.display), n, cfg.level_fixed, cfg.level_ratio_permille, cfg.logscale,
         )
         overlay = self._device_const(key, lambda: histogram_graticule(*key), counts.device)
-        if overlay is not None:
-            img = render_ops.blend_overlay(img, overlay)
-        return img
+        return render_ops.histogram_job(
+            counts.to(torch.int32), overlay, cfg.components.channel_select(), n_pixels,
+            level_fixed=cfg.level_fixed, level_ratio_permille=cfg.level_ratio_permille,
+            logscale=cfg.logscale, level_height=cfg.level_height, display=int(cfg.display),
+            n_components=n, yuv_mode=cfg.components.is_yuv)
 
     @property
     def width(self) -> int:

@@ -15,12 +15,12 @@ import numpy as np
 from ..config import VectorscopeColorType, VectorscopeConfig
 from ..ops import render as render_ops
 from ..ops.graticule import vectorscope_graticule
-from .base import FLAG_CONVERT_YUV, Needs, Scope, StandaloneScopeMixin, SurfaceData
+from .base import FLAG_CONVERT_YUV, Needs, StandaloneScopeMixin, StatScope, SurfaceData
 
 VS_SIZE = 256
 
 
-class Vectorscope(Scope, StandaloneScopeMixin):
+class Vectorscope(StatScope, StandaloneScopeMixin):
     def __init__(self, config: Optional[VectorscopeConfig] = None, device="cuda"):
         config = config or VectorscopeConfig()
         super().__init__(config)
@@ -42,22 +42,20 @@ class Vectorscope(Scope, StandaloneScopeMixin):
         """Mouse-wheel zoom (reference src/vectorscope.c:473-482)."""
         self.config.zoom = max(1.0, self.config.zoom * float(np.exp(wheel_delta * 5e-4)))
 
-    def render_image(self):
+    def stat_job(self):
+        """The render, the graticule and the zoom as one job."""
         if self.config.bypass:
-            return self.render_bypass()
+            return None
         counts = self._read()
         if counts is None:
             return None
         cs = int(self._buf_cs[self._w_buf ^ 1])
-        img = render_ops.render_vectorscope(
-            counts, intensity=self.config.intensity, cs=cs,
-            white=self.config.color_type == VectorscopeColorType.WHITE,
-        )
         key = (int(self.config.graticule), self.config.graticule_skintone_color, cs)
         overlay = self._device_const(key, lambda: vectorscope_graticule(*key), counts.device)
-        if overlay is not None:
-            img = render_ops.blend_overlay(img, overlay)
-        return render_ops.zoom_center(img, zoom=round(self.config.zoom, 3))
+        return render_ops.vectorscope_job(
+            counts, overlay, intensity=self.config.intensity, cs=cs,
+            white=self.config.color_type == VectorscopeColorType.WHITE,
+            zoom=round(self.config.zoom, 3))
 
     @property
     def width(self) -> int:

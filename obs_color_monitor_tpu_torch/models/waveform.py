@@ -19,15 +19,15 @@ from .base import (
     FLAG_CONVERT_RGB,
     FLAG_CONVERT_YUV,
     Needs,
-    Scope,
     StandaloneScopeMixin,
+    StatScope,
     SurfaceData,
 )
 
 WV_SIZE = 256
 
 
-class Waveform(Scope, StandaloneScopeMixin):
+class Waveform(StatScope, StandaloneScopeMixin):
     def __init__(self, config: Optional[WaveformConfig] = None, device="cuda"):
         config = config or WaveformConfig()
         super().__init__(config)
@@ -83,24 +83,22 @@ class Waveform(Scope, StandaloneScopeMixin):
         # the read buffer only advances on tick (reference waveform.c:394-400)
         self._r_buf = self._w_buf ^ 1
 
-    def render_image(self):
+    def stat_job(self):
+        """The tick-gated read buffer's render and the graticule as one
+        job."""
         if self.config.bypass:
-            return self.render_bypass()
+            return None
         counts = self._buf[self._r_buf]  # the tick-gated read buffer
         if counts is None:
             return None
         n = self.config.components.n_components
-        img = render_ops.render_waveform(
-            apply_channel_select(counts, self.config.components.channel_select()),
-            intensity=self.config.intensity, display=int(self.config.display),
-            n_components=n, yuv_mode=self.config.components.is_yuv,
-        )
         key = (self.config.graticule_lines, self._buf_width[self._r_buf],
                int(self.config.display), n)
         overlay = self._device_const(key, lambda: waveform_graticule(*key), counts.device)
-        if overlay is not None:
-            img = render_ops.blend_overlay(img, overlay)
-        return img
+        return render_ops.waveform_job(
+            counts, overlay, self.config.components.channel_select(),
+            intensity=self.config.intensity, display=int(self.config.display), n_components=n,
+            yuv_mode=self.config.components.is_yuv)
 
     @property
     def width(self) -> int:

@@ -1128,3 +1128,297 @@ def test_dock_compose_counts_fused_frames(cuda):
     dynamic = sum(s["name"] == "dock.dynamic" for s in snap["spans"])
     assert dynamic == 4 and snap["counters"].get("compose.fused") == dynamic
     assert "compose.plain" not in snap["counters"]
+
+
+# KR, the stats scopes' images in one launch (ops/render.draw_stat_images),
+# against the plain chain on the card: every display mode, component
+# family, colour type, level mode, logscale and zoom, at the odd widths and
+# the main paths' waveform widths
+_KR_FAMILIES = (cfg.Components.RGB, cfg.Components.Y, cfg.Components.UV, cfg.Components.YUV,
+                cfg.Components(0x05))
+_KR_LEVELS = ((0, 0), (300, 0), (0, 25))  # (level_fixed, level_ratio_permille): auto, pixel, ratio
+
+
+def _kr_jobs(device, width, seed, display, comps, white, level, logscale, zoom, n_pixels,
+             level_height=77, flat=False):
+    """One vectorscope, waveform and histogram job on ``device`` with the
+    graticules their scopes draw."""
+    from obs_color_monitor_tpu_torch.ops import graticule as gr
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    rng = np.random.default_rng(seed)
+    vs = rng.integers(0, 256, (256, 256), np.uint8)
+    wv = rng.integers(0, 256, (3, 256, width), np.uint8)
+    hi = rng.integers(0, 5000 if not flat else 2, (3, 256)).astype(np.int32)
+    hi[:, :7] = 0
+    on = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    n, sel, yuv = comps.n_components, comps.channel_select(), comps.is_yuv
+    fixed, ratio = level
+    return [
+        rd.vectorscope_job(on(vs), on(gr.vectorscope_graticule(1 + seed % 3, seed % 2 == 0,
+                                                                1 + seed % 2)),
+                           3 + seed % 20, 1 + seed % 2, white, zoom),
+        rd.waveform_job(on(wv), on(gr.waveform_graticule(1 + seed % 4, width, display, n)), sel,
+                        1 + seed % 9, display, n, yuv),
+        rd.histogram_job(on(hi), on(gr.histogram_graticule(3, 10.0, level_height, display, n,
+                                                           fixed, ratio, logscale)),
+                         sel, n_pixels, fixed, ratio, logscale, level_height, display, n, yuv),
+    ]
+
+
+def _kr_equal(jobs, device):
+    """KR's images (one launch) against the plain chain's on the card and
+    on the CPU, byte for byte."""
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    n = rd.draw_stat_images.launches
+    got = rd.draw_stat_images(jobs)
+    assert rd.draw_stat_images.launches == n + 1
+    cpu_jobs = [j._replace(counts=j.counts.cpu(), graticule=None if j.graticule is None else
+                           j.graticule.cpu(), n_pixels=j.n_pixels.cpu() if isinstance(
+                               j.n_pixels, torch.Tensor) else j.n_pixels) for j in jobs]
+    for job, img, cj in zip(jobs, got, cpu_jobs):
+        assert torch.equal(img, rd.draw_stat_plain(job)), job._replace(counts=None,
+                                                                       graticule=None)
+        assert torch.equal(img.cpu(), rd.draw_stat_plain(cj)), job.kind
+
+
+@pytest.mark.parametrize("width", [13, 17, 130, 131, 132, 1280, 1920])
+def test_scope_render_kernel_equals_plain(cuda, width):
+    """KR against the plain chain over every display mode x component
+    family x colour type x level mode (a host and a device pixel count in
+    ratio mode) x logscale x zoom, at the odd widths and the dock's 4K and
+    desktop waveform widths."""
+    import itertools
+
+    cases = itertools.product((0, 1, 2), _KR_FAMILIES, (False, True), _KR_LEVELS,
+                              (False, True), (1.0, 1.01, 2.5))
+    for k, (display, comps, white, level, logscale, zoom) in enumerate(cases):
+        n_px = 131 * 97 if k % 2 else torch.tensor(131 * 97 + k, dtype=torch.int64, device=cuda)
+        _kr_equal(_kr_jobs(cuda, width, k, display, comps, white, level, logscale, zoom, n_px,
+                           level_height=50 + k % 3, flat=k % 5 == 0), cuda)
+    # one job and two jobs a launch, in either order
+    jobs = _kr_jobs(cuda, width, 7, 2, cfg.Components.YUV, False, (0, 0), False, 2.0, 99)
+    for sub in (jobs[:1], jobs[1:2], jobs[2:], jobs[2::-2], jobs[1:]):
+        _kr_equal(sub, cuda)
+
+
+def test_scope_render_empty_waveform(cuda):
+    """A waveform of no columns draws an empty image, as the plain chain
+    does, and the other jobs of its table still draw in one launch; a
+    table of only empty images launches nothing."""
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    jobs = _kr_jobs(cuda, 16, 9, 2, cfg.Components.RGB, False, (0, 0), False, 1.0, 10)
+    empty = jobs[1]._replace(counts=jobs[1].counts[:, :, :0].contiguous(), graticule=None)
+    n = rd.draw_stat_images.launches
+    got = rd.draw_stat_images([jobs[0], empty, jobs[2]])
+    assert rd.draw_stat_images.launches == n + 1
+    assert got[1].shape == (256, 0, 4) == rd.draw_stat_plain(empty).shape
+    for job, img in zip((jobs[0], jobs[2]), (got[0], got[2])):
+        assert torch.equal(img, rd.draw_stat_plain(job))
+    assert rd.draw_stat_images([empty])[0].shape == (256, 0, 4)
+    assert rd.draw_stat_images.launches == n + 1
+
+
+def test_scope_render_graph_replays_new_counts(cuda):
+    """KR captured in a CUDA graph, replayed after the counts and the
+    device pixel count change: each replay equals the plain chain on the
+    new values."""
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    n_px = torch.tensor(4000, dtype=torch.int64, device=cuda)
+    jobs = _kr_jobs(cuda, 131, 3, 1, cfg.Components.RGB, False, (0, 25), False, 2.5, n_px)
+    auto = _kr_jobs(cuda, 131, 4, 2, cfg.Components.YUV, True, (0, 0), True, 1.0, 1)[2]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rd.draw_stat_images(jobs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = rd.draw_stat_images(jobs)
+    rng = np.random.default_rng(5)
+    for k in range(4):
+        for j in jobs:
+            hi = 4 if j.counts.dtype == torch.uint8 and k == 3 else (256 if j.counts.dtype ==
+                                                                     torch.uint8 else 9000)
+            j.counts.copy_(torch.from_numpy(rng.integers(0, hi, tuple(j.counts.shape)).astype(
+                np.uint8 if j.counts.dtype == torch.uint8 else np.int32)))
+        n_px.fill_(1000 * (k + 1) + 7)
+        graph.replay()
+        torch.cuda.synchronize()
+        for job, img in zip(jobs, outs):
+            assert torch.equal(img, rd.draw_stat_plain(job)), (k, job.kind)
+    # and the auto level mode under logscale
+    _kr_equal([auto], cuda)
+
+
+def test_scope_render_dynamic_step_ratio_mode(cuda):
+    """The dynamic dock step with the histogram in ratio mode, its pixel
+    count the rect's, in device memory: one captured graph replayed over
+    rects, one KR launch a replay, each output equal to the CPU step's."""
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    kw = dict(histogram=cfg.HistogramConfig(level_mode=cfg.LevelMode.RATIO,
+                                            level_ratio_value=1.5),
+              waveform=cfg.WaveformConfig(display=cfg.DisplayMode.PARADE),
+              vectorscope=cfg.VectorscopeConfig(zoom=1.8))
+    f = _frame(136, 240, 31)
+    steps = {dev: make_dock_step(136, 240, out_width=256, out_height=900, dynamic_roi=True,
+                                 device=dev, **kw) for dev in (cuda, "cpu")}
+    x = torch.from_numpy(f).to(cuda)
+    steps[cuda](x, 0.5, torch.tensor(COMPOSE_RECTS[1], dtype=torch.int32, device=cuda))
+    for r in COMPOSE_RECTS:
+        n = rd.draw_stat_images.launches
+        got = steps[cuda](x, 0.5, torch.tensor(r, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert rd.draw_stat_images.launches == n + 1
+        ref = steps["cpu"](torch.from_numpy(f), 0.5, torch.tensor(r, dtype=torch.int32))
+        for k, v in ref.to_numpy().items():
+            assert np.array_equal(got.to_numpy()[k], v), (r, k)
+    assert steps[cuda].graphs == 1
+
+
+def test_captured_step_holds_the_collector_off(cuda):
+    """A dead reference cycle that holds a captured graph is not collected
+    while another step is captured (a Dock and its settled step are such a
+    cycle): CUDA does not permit destroying a graph mid-capture, and the
+    capture would fail.  The collector runs again after."""
+    import gc
+
+    from obs_color_monitor_tpu_torch.graphs import captured
+
+    x = torch.arange(8, dtype=torch.float32, device=cuda)
+    old = captured(lambda t: t * 2, cuda)
+    old(x)
+    cycle = [old]
+    cycle.append(cycle)
+    holder = [cycle]
+    del old, cycle
+    seen = []
+
+    def fn(t):
+        if torch.cuda.is_current_stream_capturing() and holder:
+            holder.clear()  # the cycle is garbage from here
+            seen.append(gc.isenabled())
+            junk = [[] for _ in range(50000)]  # allocations enough for full collections
+            del junk
+        return t + 1
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        out = captured(fn, cuda)(x)
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert seen == [False] and gc.isenabled()
+    assert torch.equal(out, x + 1)
+    gc.collect()
+
+
+@pytest.mark.parametrize("level", [(0, 0), (0, 25), (500, 0)])
+def test_scope_render_full_step_one_launch_a_frame(cuda, level):
+    """The full step's replays and the batched step's (B = 2) draw each
+    frame's three images in one KR launch, every output equal to the same
+    step on the CPU."""
+    from obs_color_monitor_tpu_torch import make_batched_step
+    from obs_color_monitor_tpu_torch.ops import render as rd
+
+    modes = {(0, 25): cfg.LevelMode.RATIO, (500, 0): cfg.LevelMode.PIXEL}
+    hist = cfg.HistogramConfig(level_mode=modes.get(level, cfg.LevelMode.AUTO),
+                               logscale=level == (0, 0), components=cfg.Components.YUV)
+    h, w = 129, 262
+    frames = np.stack([_frame(h, w, 60 + k) for k in range(2)])
+    for make, args, per_call in (
+            (make_full_step, lambda d, t: (torch.from_numpy(frames[t]).to(d), 0.5 + t), 1),
+            (make_batched_step, lambda d, t: (torch.from_numpy(np.roll(frames, t, 0)).to(d),
+                                              torch.tensor([0.5, 1.5 + t], device=d)), 2)):
+        step, ref = (make(h, w, scale=2, histogram=hist, device=d) for d in (cuda, "cpu"))
+        step(*args(cuda, 0))  # the capture
+        for t in range(2):
+            n = rd.draw_stat_images.launches
+            got = step(*args(cuda, t))
+            torch.cuda.synchronize()
+            assert rd.draw_stat_images.launches == n + per_call
+            want = ref(*args("cpu", t))
+            for k, v in got._asdict().items():
+                if v is not None:
+                    assert torch.equal(v.cpu(), getattr(want, k)), (make.__name__, t, k)
+
+
+@pytest.mark.parametrize("logscale", [False, True])
+def test_scope_render_dock_counts_fused_frames(cuda, logscale, monkeypatch):
+    """A Dock on the card: every settled frame (a replay), every dynamic
+    frame (a drag, a replay) and every skipped frame (interleave 1, the
+    eager composite) makes one KR launch and counts ``render.fused``, none
+    ``render.plain``; its panels equal those of a card Dock whose renders
+    take the plain chain, and a CPU Dock's."""
+    from obs_color_monitor_tpu_torch.models import Dock
+    from obs_color_monitor_tpu_torch.ops import render as rd
+    from obs_color_monitor_tpu_torch.pipeline import profiler
+
+    rng = np.random.default_rng(41)
+    planes = [rng.integers(0, 256, (72, 96), dtype=np.uint8) for _ in range(8)]
+
+    def run(dock, frames, mouse=None):
+        out = []
+        for k, b in enumerate(frames):
+            if mouse is not None:
+                mouse(dock, k)
+            dock.push_nv12(b[:48], b[48:])
+            out.append(dock.render_async().cpu().numpy())
+        return out
+
+    def plain_chain(jobs):
+        return [rd.draw_stat_plain(j) for j in jobs]
+
+    for interleave, drag in ((0, False), (1, False), (0, True)):
+        rect = dict(x0=8, y0=4, x1=32, y1=16) if drag else {}
+        # each Dock its own configs: a drag writes its rect into the ROI's
+        docks = {name: Dock(DockConfig(), roi=cfg.ROIConfig(interleave=interleave, target_scale=2,
+                                                            **rect),
+                            histogram=cfg.HistogramConfig(logscale=logscale), device=d)
+                 for name, d in ((cuda, cuda), ("plain", cuda), ("cpu", "cpu"))}
+        plain_chain.launches = 0  # the captures read and restore it
+        mouse = None
+        for name, d in docks.items():
+            with monkeypatch.context() as mp:
+                if name == "plain":
+                    mp.setattr(rd, "draw_stat_images", plain_chain)
+                run(d, planes[:2])
+        if drag:
+            x0, y0, w, h, _, _ = docks[cuda]._rects["roi"]
+            x, y = x0 + w // 2, y0 + h // 2
+            for d in docks.values():
+                d.mouse_move(x, y)
+                d.mouse_down(x, y)
+            mouse = lambda d, k: d.mouse_move(x + 2 * (k + 1), y + k + 1)
+        n = rd.draw_stat_images.launches
+        profiler.reset()
+        profiler.enable(True)
+        try:
+            got = run(docks[cuda], planes[2:], mouse)
+            torch.cuda.synchronize()
+            snap = profiler.snapshot()
+        finally:
+            profiler.enable(False)
+            profiler.reset()
+        assert rd.draw_stat_images.launches - n == len(planes) - 2
+        assert snap["counters"].get("render.fused") == len(planes) - 2
+        assert "render.plain" not in snap["counters"]
+        routes = [s["name"] for s in snap["spans"] if s["name"] in ("dock.settled", "dock.dynamic")]
+        if drag:
+            assert routes.count("dock.dynamic") == len(planes) - 2
+        elif interleave:
+            assert snap["counters"].get("dock.skipped") == (len(planes) - 2) // 2
+        else:
+            assert routes.count("dock.settled") == len(planes) - 2
+        with monkeypatch.context() as mp:
+            mp.setattr(rd, "draw_stat_images", plain_chain)
+            want = run(docks["plain"], planes[2:], mouse)
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
+        for a, b in zip(got, run(docks["cpu"], planes[2:], mouse)):
+            assert np.array_equal(a, b)

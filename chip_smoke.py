@@ -842,11 +842,10 @@ def dyn_assembly(step, frame, rect) -> tuple:
     """(slot table, images, rect) of the dynamic step's panel assembly as
     KC's wrapper checks them, from one eager call on the card; on the CPU,
     as its plain version receives them."""
-    from obs_color_monitor_tpu_torch import dock_step
     from obs_color_monitor_tpu_torch.ops import compose
 
     seen = {}
-    check, plain = compose.check_panel_inputs, dock_step.assemble_dyn_panel
+    check, plain = compose.check_panel_inputs, compose.assemble_dyn_panel
 
     def spy(fn):
         def record(table, images, r):
@@ -854,11 +853,11 @@ def dyn_assembly(step, frame, rect) -> tuple:
             return fn(table, images, r)
         return record
 
-    compose.check_panel_inputs, dock_step.assemble_dyn_panel = spy(check), spy(plain)
+    compose.check_panel_inputs, compose.assemble_dyn_panel = spy(check), spy(plain)
     try:
         step.eager(frame, 1.0, rect)
     finally:
-        compose.check_panel_inputs, dock_step.assemble_dyn_panel = check, plain
+        compose.check_panel_inputs, compose.assemble_dyn_panel = check, plain
     return seen["args"]
 
 
@@ -868,11 +867,10 @@ class plain_assembly:
     captured inside keeps them in its graph."""
 
     def __enter__(self):
-        from obs_color_monitor_tpu_torch import dock_step
         from obs_color_monitor_tpu_torch.ops import compose
 
         def plain(table, images, rect):
-            return dock_step.assemble_dyn_panel(table, images, rect)
+            return compose.assemble_dyn_panel(table, images, rect)
 
         self.wrapper = compose.compose_dyn_panel
         plain.launches = self.wrapper.launches  # the captures read and restore it
@@ -892,7 +890,7 @@ def phase_compose(device, err: dict, h=H4K, w=W4K, roi=ROI) -> None:
     takes), one launch a call."""
     import torch
 
-    from obs_color_monitor_tpu_torch import DockConfig, dock_step, make_dock_step
+    from obs_color_monitor_tpu_torch import DockConfig, make_dock_step
     from obs_color_monitor_tpu_torch.ops import compose
 
     step = make_dock_step(h, w, scale=2, input_format="nv12",
@@ -906,7 +904,7 @@ def phase_compose(device, err: dict, h=H4K, w=W4K, roi=ROI) -> None:
     for r in rects:
         table, images, rect = dyn_assembly(step, x, torch.tensor(r, dtype=torch.int32,
                                                                   device=device))
-        want = dock_step.assemble_dyn_panel(table, images, rect).cpu()
+        want = compose.assemble_dyn_panel(table, images, rect).cpu()
         for t in (table, table._replace(wide=True)):
             n = compose.compose_dyn_panel.launches
             got = compose.compose_dyn_panel(t, images, rect).cpu()
@@ -1952,7 +1950,7 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     import torch
 
     from obs_color_monitor_tpu_torch import (
-        DockConfig, dock_step, make_batched_step, make_dock_step, make_full_step)
+        DockConfig, make_batched_step, make_dock_step, make_full_step)
     from obs_color_monitor_tpu_torch.ops import compose
     from obs_color_monitor_tpu_torch.ops import convert as cv
     from obs_color_monitor_tpu_torch.ops import decode as dec
@@ -2083,7 +2081,7 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     # KC alone on the step's images, and its plain version on the card
     kc_args = dyn_assembly(dyn, (y, uv), roi_t)
     fns["kc"] = lambda: compose.compose_dyn_panel(*kc_args)
-    fns["kc_plain"] = lambda: dock_step.assemble_dyn_panel(*kc_args)
+    fns["kc_plain"] = lambda: compose.assemble_dyn_panel(*kc_args)
     # KC: the panel written once and about one 4-byte source sample read
     # per panel pixel; ~100 integer operations a pixel
     n_px = kc_args[0].out_w * kc_args[0].out_h

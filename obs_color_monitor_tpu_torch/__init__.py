@@ -16,11 +16,13 @@ Layout:
                 replayed (the counterpart of jax.jit)
   models/       CaptureHub, the six scopes, InteractiveROI and the streaming
                 Dock
-  ops/          convert, overlays, stats, render, graticule (plain torch or
-                numpy); kernel wrappers with their plain versions: pipeline
-                (K1, and K9's fused_ingest_stats_scale1/2 as K1 + K2),
-                scope_stats (K2), fused_overlays (K3), decode (K4, K5);
-                fused.analyze (K1 + K2)
+  ops/          convert, overlays, stats, graticule (plain torch or numpy);
+                kernel wrappers with their plain versions: pipeline (K1,
+                and K9's fused_ingest_stats_scale1/2 as K1 + K2),
+                scope_stats (K2), fused_overlays (K3), decode (K4, K5),
+                render (KR: the stats scopes' images), compose (the dock
+                panel's layout and assembly for dock_step and the Dock;
+                KC: the dynamic-ROI panel); fused.analyze (K1 + K2)
   ops/csrc/     the CUDA sources, built by nvcc at first use (_kernels.py)
   pipeline/     the host pipeline: FrameQueue, PipelineDriver (pinned
                 uploads on a producer stream), ingest sources, the MJPEG

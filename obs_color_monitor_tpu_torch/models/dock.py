@@ -7,7 +7,8 @@ dock creates an ROI source plus six scopes that all target it
 (src/scope-widget.cpp:19-25,542-561) and stacks the shown ones vertically
 with per-scope aspect rules (src/scope-widget.cpp:99-175).  Here the Dock
 owns a CaptureHub with the six scopes registered; ``render`` composites the
-shown ones on the device and fetches the panel once.
+shown ones on the device and fetches the panel once.  The panel's layout
+and assembly are ``ops/compose``'s, shared with ``dock_step``.
 
 The JAX Dock caches XLA programs (a fused render, a one-program stream
 step per layout, the dock step) because each program execution costs a
@@ -29,12 +30,7 @@ With the profiler on (``pipeline.profiler``) the Dock's calls are spans:
 the route taken (``dock.settled``, ``dock.dynamic``, or the hub fan-out
 ``dock.fanout``; ``dock.skipped`` counts a skipped frame), the publication
 after a step (``dock.publish``) and the selection outline
-(``dock.indicator``), and ``dock.mouse`` for each mouse call.  Each
-``dock.dynamic`` frame counts ``compose.fused`` where its step assembles
-the panel in one kernel launch (a card), else ``compose.plain``; every
-frame whose panel draws a stats scope (vectorscope, waveform, histogram)
-counts ``render.fused`` where their images take KR's one launch (a card),
-else ``render.plain`` (the torch chain).
+(``dock.indicator``), and ``dock.mouse`` for each mouse call.
 """
 
 from __future__ import annotations
@@ -55,9 +51,10 @@ from ..config import (
     ZebraConfig,
     config_key,
 )
-from ..dock_step import SCOPE_ORDER, _resize_nearest_rgba, compose_vstack, make_dock_step
-from ..dock_step import shaded_preview as _shaded_preview
+from ..dock_step import SCOPE_ORDER, make_dock_step
 from ..graphs import captured
+from ..ops import compose
+from ..ops.compose import shaded_preview as _shaded_preview
 from ..ops.convert import (
     OPAQUE_BLACK,
     host_packed_view,
@@ -338,74 +335,36 @@ class Dock:
                 return panel
             # the frame was processed or skipped: render the published buffers
         self._set_roi_view()
-        panel, self._rects, all_shown, drew_stats = self._composite(cx, cy, shown)
-        self._count_render(drew_stats)
+        panel, self._rects, all_shown = self._composite(cx, cy, shown)
         if all_shown and not any(getattr(self.scopes[n].config, "bypass", False)
                                  for n in shown):
             self._warm = True
         return panel
 
     def _composite(self, cx: int, cy: int, shown: list):
-        """The shown scopes' renders of the published buffers, composited:
-        (panel, {name: its display rect}, whether every shown scope had
-        data, whether it drew a stats scope's image).  Device work only: it
-        reads the scopes' state and changes none (the settled route
+        """The shown scopes' renders of the published buffers, composited
+        (``ops/compose``): (panel, {name: its display rect and source dims},
+        whether every shown scope had data).  A scope with no image or no
+        room is left out; its slot's height stays taken.  Device work only:
+        it reads the scopes' state and changes none (the settled route
         captures it)."""
-        rects = {}
-        patches = []
-        all_shown = True
-        y0 = 0
         # the overlay scopes on the same planes take one K3 launch together,
         # the stats scopes one KR launch
         scopes = [self.scopes[n] for n in shown]
-        stats = shared_stat_images(scopes)
-        shared = {**shared_overlay_images(scopes), **stats}
-        for k, name in enumerate(shown):
-            scope = self.scopes[name]
-            img = shared[scope] if scope in shared else scope.render_image()
-            h_slot = (cy - y0) // (len(shown) - k)
-            if img is None:
-                all_shown = False
-                y0 += h_slot
-                continue
-            h_src, w_src = int(img.shape[0]), int(img.shape[1])
-            w, h = cx, h_slot
-            actual = self.focuspeaking.config.actual_size
-            keep_aspect = name in ("roi", "zebra", "falsecolor") or (
-                name == "focuspeaking" and not actual)
-            if name == "vectorscope":
-                w = h = min(w, h)
-            elif keep_aspect and w_src > 0 and h_src > 0:
-                if w * h_src > h * w_src:
-                    w = h * w_src // h_src
-                elif h * w_src > w * h_src:
-                    h = w * h_src // w_src
-            crop = None
-            if name == "focuspeaking" and actual and w_src > 0:
-                # 1:1 pixels, centred, cropped to the slot (reference
-                # set_actual_size_matrix, focuspeaking.c:203-220)
-                w, h = min(w, w_src), min(h, h_src)
-                crop = ((h_src - h) // 2, (w_src - w) // 2)
-            if w > 0 and h > 0:
-                x0 = (cx - w) // 2
-                if crop is None:
-                    patch = _resize_nearest_rgba(img, h, w)
-                else:
-                    patch = img[crop[0] : crop[0] + h, crop[1] : crop[1] + w]
-                patches.append((x0, y0, patch))
-                rects[name] = (x0, y0, w, h, w_src, h_src)
-            y0 += h_slot
-        if not patches:
+        shared = {**shared_overlay_images(scopes), **shared_stat_images(scopes)}
+        images = {n: shared[s] if s in shared else s.render_image() for n, s in zip(shown, scopes)}
+        dims = {n: (0, 0) if img is None else (int(img.shape[1]), int(img.shape[0]))
+                for n, img in images.items()}
+        boxes = {n: b for n, (_, b) in compose.panel_layout(
+                     [(n, *dims[n]) for n in shown], cx, cy,
+                     self.focuspeaking.config.actual_size).items()
+                 if images[n] is not None and b.w > 0 and b.h > 0}
+        rects = {n: (*b[:4], *dims[n]) for n, b in boxes.items()}
+        all_shown = all(img is not None for img in images.values())
+        if not boxes:
             black = torch.full((cy, cx), OPAQUE_BLACK, dtype=torch.int32, device=self.device)
-            return black.view(torch.uint8).view(cy, cx, 4), rects, all_shown, bool(stats)
-        return compose_vstack(patches, cx, cy), rects, all_shown, bool(stats)
-
-    def _count_render(self, drew_stats: bool) -> None:
-        """A frame whose panel drew a stats scope's image counts
-        ``render.fused`` (KR's one launch, on a card) or ``render.plain``
-        (the torch chain)."""
-        if drew_stats:
-            profiler.count("render.fused" if self.device.type == "cuda" else "render.plain")
+            return black.view(torch.uint8).view(cy, cx, 4), rects, all_shown
+        return compose.assemble_panel(images, boxes, cx, cy), rects, all_shown
 
     def _frame_dims(self, frame) -> tuple[int, int]:
         """(h, w) of a pending frame: NV12, packed (H, W) or (H, W, 4)."""
@@ -479,7 +438,6 @@ class Dock:
             self._settled = self._settled_step(cx, cy, shown, rect, full, frame)
             self._settled_key = key
         panel, result = self._settled(arg, float(self.zebra.tm), wv._buf[wv._r_buf])
-        self._count_render(self._settled.draws_stats)
         with profiler.span("dock.publish"):
             surface = SurfaceData(result=result, width=rect[2] - rect[0],
                                   height=rect[3] - rect[1], colorspace=hub.colorspace,
@@ -528,13 +486,12 @@ class Dock:
                     c.surface_cb(surface)
                 wv._buf[wv._r_buf] = wv_prev  # the tick-gated read buffer
                 zebra.tm = tm
-                panel, rects, _, drew_stats = self._composite(cx, cy, shown)
+                panel, rects, _ = self._composite(cx, cy, shown)
             finally:
                 for c, buf, w_buf in saved:
                     c._buf, c._w_buf = buf, w_buf
                 zebra.tm = clock
             step.rects = rects
-            step.draws_stats = drew_stats  # what the replays draw: set at capture
             return panel, res
 
         step = captured(settled, self.device, max_graphs=1)
@@ -557,9 +514,6 @@ class Dock:
         last publication."""
         out = self._device_step_out(frame, float(self.zebra.tm), cx, cy)
         step = self._device_step
-        # the panel's assembly: KC's one launch on a card, torch ops elsewhere
-        profiler.count("compose.fused" if step.fused_compose else "compose.plain")
-        self._count_render(step.draws_stats)
         with profiler.span("dock.publish"):
             hub = self.hub
             # mouse routing follows the step's static bands (the overlay slots'

@@ -1,10 +1,13 @@
 """Device ops of the torch port (counterpart of ``obs_color_monitor_tpu/ops``).
 
-Plain torch: ``convert``, ``overlays``, ``stats``, ``render``; numpy:
-``graticule``.  Kernel wrappers with their plain versions beside them:
-``pipeline`` (K1, the whole-frame pass), ``scope_stats`` (K2, vectorscope +
-waveform, either alone), ``fused_overlays`` (K3, the three overlays) and
-``decode`` (K4/K5, NV12/P010 decode).  ``fused.analyze`` runs K1 + K2.
+Plain torch: ``convert``, ``overlays``, ``stats``; numpy: ``graticule``.
+Kernel wrappers with their plain versions beside them: ``pipeline`` (K1,
+the whole-frame pass), ``scope_stats`` (K2, vectorscope + waveform, either
+alone), ``fused_overlays`` (K3, the three overlays), ``decode`` (K4/K5,
+NV12/P010 decode), ``render`` (KR, ``draw_stat_images``: the stats scopes'
+images, beside their torch renders) and ``compose`` (the dock panel's
+layout and assembly for ``dock_step`` and the Dock; KC, the dynamic-ROI
+panel in one launch).  ``fused.analyze`` runs K1 + K2.
 The package re-exports the JAX ``ops`` package's names
 (``ops/__init__.py:7-53``): the planar forms and their interleaved boundary
 wrappers.  Importing this package imports no kernel toolchain; kernels

@@ -1,24 +1,231 @@
-"""The dynamic-ROI dock step's panel in one launch: the wrapper of kernel KC
-and the slot table it reads.
+"""The dock panel, the one home of its layout and assembly, for the dock
+step (``dock_step.make_dock_step``) and the streaming ``models/dock.Dock``
+alike; it imports nothing above ``ops``.
 
-No JAX counterpart kernel: the JAX dynamic step (``dock_step.py:485-710``)
-composes its panel from XLA ops, and so does the plain version here,
-``dock_step.assemble_dyn_panel`` (the preview's shading, the slot samplers,
-the key legend's blend and ``compose_vstack``), which the wrapper runs for
-a CPU tensor.  On a card the whole assembly is one launch of
-``ops/csrc/dock_compose.cu``.  :func:`panel_table` is the static layout the
-kernel reads, built once per step by ``make_dock_step(dynamic_roi=True)``.
+- :func:`panel_layout`: the reference's vertical stack and aspect rules
+  (the JAX ``dock_step._layout``) as unclamped boxes; each caller keeps its
+  own edge rule (the dock step draws an empty box as one pixel, the Dock
+  skips it).
+- :func:`assemble_panel`: the static panel, each image nearest-resized into
+  its box (or focus peaking's 1:1 window) and stacked by
+  :func:`compose_vstack`.
+- KC, the dynamic-ROI step's panel in one launch (no JAX counterpart
+  kernel): :func:`panel_table` is the slot table that
+  ``make_dock_step(dynamic_roi=True)`` builds once; :func:`compose_dyn_panel`
+  launches ``ops/csrc/dock_compose.cu`` for a rect on a card and runs the
+  plain version :func:`assemble_dyn_panel` (the JAX step_dyn's composite,
+  ``dock_step.py:485-710``) for a CPU rect.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import _kernels
 from ..config import ShowKey
+from .convert import OPAQUE_BLACK, _as_device_arg, clamp_rect, planes_to_rgba, rgba_to_packed
+
+
+class Box(NamedTuple):
+    """A box of the panel; ``crop``: the source's (x, y) of the box's 1:1
+    window, else None (the source nearest-resized into the box)."""
+
+    x0: int
+    y0: int
+    w: int
+    h: int
+    crop: Optional[tuple[int, int]] = None
+
+
+def panel_layout(shown_dims, cx: int, cy: int, fp_actual: bool) -> dict[str, tuple[Box, Box]]:
+    """The shown scopes [(name, w_src, h_src)] stacked on a (cx, cy) panel,
+    each x-centred in an equal share of the height left (reference draw,
+    src/scope-widget.cpp:117-170): the vectorscope square; the ROI preview,
+    zebra, false colour and focus peaking (unless ``fp_actual``) at their
+    source's aspect.  {name: (fit, box)}: the box fitted in the slot, and
+    the box drawn, the fit but at actual size (focus peaking's centred 1:1
+    window, reference set_actual_size_matrix, focuspeaking.c:203-220).
+    Unclamped: a slot of a too-short panel may have no height."""
+    boxes = {}
+    y0 = 0
+    for k, (name, w_src, h_src) in enumerate(shown_dims):
+        w, h = cx, (cy - y0) // (len(shown_dims) - k)
+        h_slot = h
+        keep_aspect = name in ("roi", "zebra", "falsecolor") or (
+            name == "focuspeaking" and not fp_actual)
+        if name == "vectorscope":
+            w = h = min(w, h)
+        elif keep_aspect and w_src > 0 and h_src > 0:
+            if w * h_src > h * w_src:
+                w = h * w_src // h_src
+            elif h * w_src > w * h_src:
+                h = w * h_src // w_src
+        fit = box = Box((cx - w) // 2, y0, w, h)
+        if name == "focuspeaking" and fp_actual:
+            w, h = min(w, w_src), min(h, h_src)
+            box = Box((cx - w) // 2, y0, w, h, ((w_src - w) // 2, (h_src - h) // 2))
+        boxes[name] = (fit, box)
+        y0 += h_slot
+    return boxes
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index(n_src: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """Source index of each of ``n_out`` nearest-resize samples."""
+    idx = np.minimum((np.arange(n_out) * n_src) // n_out, n_src - 1)
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+def _rgba_view(img: torch.Tensor) -> torch.Tensor:
+    """(H, W, 4) u8 as it is, or the (H, W, 4) u8 bytes of an (H, W) int32
+    packed image (no copy)."""
+    if img.ndim == 2:
+        return img.contiguous().view(torch.uint8).view(img.shape[0], img.shape[1], 4)
+    return img
+
+
+def _resize_nearest_rgba(img: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """(H, W, 4) u8 or packed (H, W) int32 -> (oh, ow, 4) u8 nearest resize
+    (the JAX ``dock_step._resize_nearest_rgba``), as a plain index gather:
+    the JAX one-hot column matmul exists only because lane gathers are slow
+    on a TPU."""
+    x = _rgba_view(img)
+    h, w = x.shape[0], x.shape[1]
+    return x.index_select(0, _nearest_index(h, oh, x.device)).index_select(
+        1, _nearest_index(w, ow, x.device)
+    )
+
+
+def _packed_image(img: torch.Tensor) -> torch.Tensor:
+    """(H, W) int32 packed pixels of an (H, W, 4) u8 image (no copy when it
+    is contiguous) or of a packed image as it is."""
+    if img.ndim == 2:
+        return img
+    return rgba_to_packed(img)
+
+
+def _floordiv(a, b):
+    """Floor division of integer tensors, as JAX's ``//`` (the samplers
+    divide negative numerators)."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _fit_dyn(slot_w: int, slot_h: int, src_w: torch.Tensor, src_h: torch.Tensor):
+    """(fw, fh), 0-d int64 tensors: the largest box inside the static
+    (slot_w, slot_h) band with the dynamic source aspect, by
+    :func:`panel_layout`'s integer formula, so a rect equal to a static one
+    gives the same panel (the JAX ``dock_step._fit_dyn``)."""
+    fw = torch.where(slot_w * src_h > slot_h * src_w,
+                     _floordiv(slot_h * src_w, src_h.clamp(min=1)), slot_w)
+    fh = torch.where(slot_h * src_w > slot_w * src_h,
+                     _floordiv(slot_w * src_h, src_w.clamp(min=1)), slot_h)
+    return fw.clamp(min=1), fh.clamp(min=1)
+
+
+def _dyn_sample_rgba(img: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                     valid: torch.Tensor | None = None) -> torch.Tensor:
+    """(H, W, 4) u8 or packed (H, W) int32 -> (len(sy), len(sx), 4) u8, the
+    pixels at rows ``sy`` and columns ``sx`` (int64 device tensors, clamped
+    into the image): a gather of the packed view, rows then columns, exact
+    by construction (the JAX ``dock_step._dyn_sample_rgba``, whose one-hot
+    matmul is the TPU's way around a lane gather).  ``valid`` (len(sy), len(sx))
+    turns the pixels outside the fitted box opaque black."""
+    x32 = _packed_image(img)
+    h, w = x32.shape
+    out = x32.index_select(0, sy.clamp(0, h - 1)).index_select(1, sx.clamp(0, w - 1))
+    if valid is not None:
+        out = torch.where(valid, out, OPAQUE_BLACK)
+    return out.view(torch.uint8).view(out.shape[0], out.shape[1], 4)
+
+
+def shaded_preview(planes: torch.Tensor, rect) -> torch.Tensor:
+    """The ROI selection over the full capture: 50 % black outside the rect
+    and a green border on its first and last rows and columns (reference
+    draw_roi_range / draw_roi_rect, src/roi.c:207-265;
+    ``models/dock._shaded_preview``).  ``rect`` (x0, y0, x1, y1) is a host
+    sequence or a (4,) int32 tensor on the planes' device, used as given;
+    (4, H, W) u8 in, (H, W, 4) u8 out."""
+    r = torch.as_tensor(rect, dtype=torch.int32, device=planes.device)
+    h, w = planes.shape[-2], planes.shape[-1]
+    ri = torch.arange(h, dtype=torch.int32, device=planes.device)[:, None]
+    ci = torch.arange(w, dtype=torch.int32, device=planes.device)[None, :]
+    in_cols = (ci >= r[0]) & (ci < r[2])
+    in_rows = (ri >= r[1]) & (ri < r[3])
+    border = (((ri == r[1]) | (ri == r[3] - 1)) & in_cols) | (
+        ((ci == r[0]) | (ci == r[2] - 1)) & in_rows)
+    p = planes.to(torch.int32)
+    shaded = torch.where(in_rows & in_cols, p[:3], (p[:3] * 128) // 255)
+    chans = [shaded[0], shaded[1], shaded[2], p[3]]
+    chans = [torch.where(border, g, c) for g, c in zip((0, 255, 0, 255), chans)]
+    return planes_to_rgba(torch.stack(chans).to(torch.uint8))
+
+
+def compose_vstack(patches: list, out_w: int, out_h: int) -> torch.Tensor:
+    """Composite [(x0, y0, patch (h, w, 4) u8)] onto an opaque-black
+    (out_h, out_w, 4) canvas (the JAX ``dock_step.compose_vstack``).
+
+    Patches that lie inside the canvas in y-sorted, non-overlapping order
+    are padded to full-width row bands on their int32 pixel view and
+    concatenated; anything else (a panel too short for its scope count,
+    whose slots overlap) takes the update-slice loop, which clips like the
+    reference draw and keeps its last-drawn-wins order.  A host patch goes
+    to the first patch's device (the default device for the first)."""
+    if patches:
+        first = _as_device_arg(patches[0][2])
+        patches = [(x0, y0, _as_device_arg(p, first.device)) for x0, y0, p in patches]
+    dev = patches[0][2].device if patches else torch.device("cpu")
+    stackable = all(
+        b[1] >= a[1] + a[2].shape[0] for a, b in zip(patches, patches[1:])
+    ) and all(
+        0 <= y0 and y0 + p.shape[0] <= out_h and 0 <= x0 and x0 + p.shape[1] <= out_w
+        for x0, y0, p in patches
+    )
+    if not stackable:
+        canvas = torch.zeros((out_h, out_w, 4), dtype=torch.uint8, device=dev)
+        canvas[..., 3] = 255
+        for x0, y0, patch in patches:
+            h, w = patch.shape[0], patch.shape[1]
+            y0c, x0c = max(y0, 0), max(x0, 0)
+            y1c, x1c = min(y0 + h, out_h), min(x0 + w, out_w)
+            if y1c <= y0c or x1c <= x0c:
+                continue
+            canvas[y0c:y1c, x0c:x1c] = patch[y0c - y0 : y1c - y0, x0c - x0 : x1c - x0]
+        return canvas
+    black = lambda n: torch.full((n, out_w), OPAQUE_BLACK, dtype=torch.int32, device=dev)
+    bands = []
+    y = 0
+    for x0, y0, patch in patches:
+        h, w = patch.shape[0], patch.shape[1]
+        if y0 > y:
+            bands.append(black(y0 - y))
+        p32 = rgba_to_packed(patch)
+        bands.append(torch.nn.functional.pad(p32, (x0, out_w - x0 - w), value=OPAQUE_BLACK))
+        y = y0 + h
+    if y < out_h:
+        bands.append(black(out_h - y))
+    return torch.cat(bands, dim=0).view(torch.uint8).view(out_h, out_w, 4)
+
+
+def assemble_panel(images: dict, boxes: dict, out_w: int, out_h: int) -> torch.Tensor:
+    """The static panel, (out_h, out_w, 4) u8: each scope's image of
+    ``images`` ((H, W, 4) u8 or packed (H, W) int32, by name) drawn in its
+    :class:`Box` of ``boxes`` (by name, in drawing order), nearest-resized
+    or its 1:1 window, and the patches stacked by :func:`compose_vstack`."""
+    patches = []
+    for name, b in boxes.items():
+        if b.crop is None:
+            patch = _resize_nearest_rgba(images[name], b.h, b.w)
+        else:
+            sx, sy = b.crop
+            patch = _rgba_view(images[name])[sy : sy + b.h, sx : sx + b.w]
+        patches.append((b.x0, b.y0, patch))
+    return compose_vstack(patches, out_w, out_h)
+
 
 # slot kinds, as dock_compose.cu numbers them: the ROI preview (the
 # capture's planes, shaded by the rect), a static nearest resize
@@ -62,7 +269,8 @@ def panel_table(names, rects: dict, dims: dict, capture: tuple[int, int],
                 show_key: ShowKey = ShowKey.NONE,
                 legend: Optional[torch.Tensor] = None) -> PanelTable:
     """The slot table of the shown scopes ``names`` (in ``SCOPE_ORDER``):
-    their bands ``rects`` (``dock_step._layout``), the stat images' (w, h)
+    their bands ``rects`` (``dock_step._layout``: :func:`panel_layout`'s
+    fitted boxes, at least one pixel each), the stat images' (w, h)
     ``dims``, the (sw, sh) capture and the (out_w, out_h) panel.
     ``fp_actual``: focus peaking at actual size; ``wv_parade``: the
     waveform's components side by side (1 unless parade); ``show_key`` and
@@ -180,6 +388,96 @@ def check_panel_inputs(table: PanelTable, images: dict, rect) -> None:
             _check_image("the key legend", lg, shape, rect.device)
 
 
+@functools.lru_cache(maxsize=256)
+def _arange(n: int, device: torch.device) -> torch.Tensor:
+    """0 .. n - 1 as int64 on ``device`` (a band's columns or rows)."""
+    return torch.arange(n, dtype=torch.int64, device=device)
+
+
+def assemble_dyn_panel(table: PanelTable, images: dict,
+                       rect: torch.Tensor) -> torch.Tensor:
+    """The dynamic-ROI step's (out_h, out_w, 4) u8 panel in torch ops (the
+    JAX step_dyn's composite, ``dock_step.py:485-710``): the plain version
+    of :func:`compose_dyn_panel`'s kernel, run for a CPU rect.
+    ``images``: the scope name -> the slot's source (for ``roi`` the
+    capture's planes); ``rect``: the (4,) int32 rect, clamped into the
+    capture here.  Every index the slot samplers gather by is an integer
+    tensor computed on the device from the clamped rect."""
+    device = rect.device
+    rect_c = clamp_rect(rect, *table.capture)
+    rx0, ry0, rx1, ry1 = rect_c.to(torch.int64)
+    rw1, rh1 = (rx1 - rx0).clamp(min=1), (ry1 - ry0).clamp(min=1)
+    sw = table.capture[0]
+
+    def key_patch(img, ws, hs, jj, ii, slot):
+        """The false-colour slot with its key legend: the canvas (the rect
+        extended by the key strip) fitted into the band, the rect's pixels
+        sampled through it and the legend texture blended over the box
+        (the canvas maps affinely onto the fitted box;
+        ``dock_step.py:387-405``)."""
+        cw = _floordiv(rw1 * 11, 10) if slot.key_wide else rw1
+        ch = _floordiv(rh1 * 12, 10) if slot.key_tall else rh1
+        fw, fh = _fit_dyn(ws, hs, cw, ch)
+        dxo = _floordiv(ws - fw, 2)
+        cx, cy = _floordiv((jj - dxo) * cw, fw), _floordiv(ii * ch, fh)
+        col_in, row_in = (jj >= dxo) & (jj < dxo + fw), ii < fh
+        valid = (row_in & (cy < rh1))[:, None] & (col_in & (cx < rw1))[None, :]
+        base = _dyn_sample_rgba(img, ry0 + torch.minimum(cy.clamp(min=0), rh1 - 1),
+                                rx0 + torch.minimum(cx.clamp(min=0), rw1 - 1), valid)
+        legend = table.legend
+        lh, lw = legend.shape[0], legend.shape[1]
+        lg = _dyn_sample_rgba(legend, _floordiv(ii * lh, fh).clamp(0, lh - 1),
+                              _floordiv((jj - dxo) * lw, fw).clamp(0, lw - 1))
+        a = torch.where(row_in[:, None] & col_in[None, :], lg[..., 3].to(torch.int32), 0)
+        a = a[..., None]
+        rgb = (lg[..., :3].to(torch.int32) * a + base[..., :3].to(torch.int32) * (255 - a)
+               + 127) // 255
+        return torch.cat([rgb.to(torch.uint8), base[..., 3:]], dim=-1)
+
+    patches = []
+    for slot in table.slots:
+        x0s, y0s, ws, hs = slot.band
+        img = images[slot.name]
+        if slot.kind == PREVIEW:
+            # the full capture with the selection shaded
+            img = shaded_preview(img, rect_c)
+        if slot.kind in (PREVIEW, NEAREST):
+            patches.append((x0s, y0s, _resize_nearest_rgba(img, hs, ws)))
+            continue
+        jj, ii = _arange(ws, device), _arange(hs, device)
+        if slot.kind == WAVEFORM:
+            # the rect's columns stretched across the slot; in parade mode
+            # through the per-component segments first
+            if slot.parade > 1:
+                m = _floordiv(jj * (rw1 * slot.parade), ws)
+                cseg = _floordiv(m, rw1)
+                src_j = cseg * sw + rx0 + (m - cseg * rw1)
+            else:
+                src_j = rx0 + _floordiv(jj * rw1, ws)
+            patches.append((x0s, y0s, _dyn_sample_rgba(img, _nearest_index(slot.src[0], hs,
+                                                                             device), src_j)))
+            continue
+        if slot.kind == KEYED:
+            patches.append((x0s, y0s, key_patch(img, ws, hs, jj, ii, slot)))
+            continue
+        # content x-centred and top-aligned in its band, as panel_layout
+        # places the static patch
+        if slot.kind == ACTUAL:
+            # 1:1 pixels, centred on the rect, cropped to the slot
+            fw, fh = rw1.clamp(max=ws), rh1.clamp(max=hs)
+            dxo = _floordiv(ws - fw, 2)
+            src_j = rx0 + _floordiv(rw1 - fw, 2) + (jj - dxo)
+            sy = ry0 + _floordiv(rh1 - fh, 2) + ii
+        else:
+            fw, fh = _fit_dyn(ws, hs, rw1, rh1)
+            dxo = _floordiv(ws - fw, 2)
+            src_j = rx0 + _floordiv((jj - dxo) * rw1, fw)
+            sy = ry0 + _floordiv(ii * rh1, fh)
+        valid = (ii < fh)[:, None] & ((jj >= dxo) & (jj < dxo + fw))[None, :]
+        patches.append((x0s, y0s, _dyn_sample_rgba(img, sy, src_j, valid)))
+    return compose_vstack(patches, table.out_w, table.out_h)
+
+
 def compose_dyn_panel(table: PanelTable, images: dict, rect: torch.Tensor) -> torch.Tensor:
     """KC: the dynamic-ROI step's (out_h, out_w, 4) u8 panel from its slot
     table, its images (the scope name -> the slot's source: for ``roi`` the
@@ -187,14 +485,10 @@ def compose_dyn_panel(table: PanelTable, images: dict, rect: torch.Tensor) -> to
     packed (h, w) int32 image) and its (4,) int32 rect, which the kernel
     reads on the device and clamps into the capture
     (:func:`convert.clamp_rect`): a new rect changes no launch.  A CPU rect
-    runs the plain version, ``dock_step.assemble_dyn_panel``; a CUDA rect
+    runs the plain version, :func:`assemble_dyn_panel`; a CUDA rect
     launches the kernel, whose panel equals it byte for byte."""
     dev = rect.device
     if dev.type == "cpu":
-        # the plain version lives beside the torch helpers it shares with the
-        # static step; dock_step imports this module
-        from ..dock_step import assemble_dyn_panel
-
         return assemble_dyn_panel(table, images, rect)
     if dev.type != "cuda":
         raise ValueError(f"compose_dyn_panel: unsupported device {dev}")

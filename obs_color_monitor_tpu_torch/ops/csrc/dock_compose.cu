@@ -2,7 +2,7 @@
 //
 // Replaces no TPU kernel: the JAX dynamic step (obs_color_monitor_tpu/
 // dock_step.py:485-710, step_dyn) builds its panel from XLA ops, and the
-// port's torch version of them (dock_step.assemble_dyn_panel, the plain
+// port's torch version of them (ops/compose.assemble_dyn_panel, the plain
 // version) runs as ~190 small kernels a frame: the preview's shading of
 // the whole capture, the slot samplers' index math on 0-d and 1-D tensors,
 // their gathers, the key legend's blend and the vertical stack.  Here one
@@ -75,7 +75,7 @@ __device__ __forceinline__ I clampi(I v, I lo, I hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// dock_step._fit_dyn: the largest box inside (slot_w, slot_h) with the
+// ops/compose._fit_dyn: the largest box inside (slot_w, slot_h) with the
 // source's aspect, at least 1 x 1
 template <typename I>
 __device__ __forceinline__ void fit(I slot_w, I slot_h, I src_w, I src_h, I& fw, I& fh) {
@@ -106,7 +106,7 @@ __device__ int slot_pixel(const ComposeSlot& s, const Rect<I>& r, I sw, I jj, I 
   const I ws = s.w, hs = s.h, src_h = s.src_h, src_w = s.src_w;
   switch (s.kind) {
     case PREVIEW: {
-      // dock_step.shaded_preview at the nearest-resize sample: 50 % black
+      // ops/compose.shaded_preview at the nearest-resize sample: 50 % black
       // outside the rect, a green border on its first and last rows and
       // columns
       const I sy = min(ii * src_h / hs, src_h - 1), sx = min(jj * src_w / ws, src_w - 1);
@@ -124,7 +124,7 @@ __device__ int slot_pixel(const ComposeSlot& s, const Rect<I>& r, I sw, I jj, I 
       }
       return v;
     }
-    case NEAREST:  // dock_step._resize_nearest_rgba
+    case NEAREST:  // ops/compose._resize_nearest_rgba
       return texel<I>(s, min(ii * src_h / hs, src_h - 1), min(jj * src_w / ws, src_w - 1));
     case WAVEFORM: {
       // the rect's columns stretched across the band; in parade through

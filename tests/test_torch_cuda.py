@@ -1048,27 +1048,28 @@ def _recorded_assembly(step, frame, rect, monkeypatch):
 def test_dock_compose_kernel_equals_plain_assembly(cuda, layout, monkeypatch):
     """KC's panel equals the plain assembly's on the same images, byte for
     byte, at every rect of the sweep, in int32 and in 64-bit index math;
-    the dynamic step launches it once and its panel equals the CPU step's."""
-    from obs_color_monitor_tpu_torch import dock_step
+    the dynamic step launches it once and its panel equals the CPU step's,
+    which launches nothing."""
     from obs_color_monitor_tpu_torch.ops import compose
 
     kw, (ow, oh) = COMPOSE_LAYOUTS[layout]
     f = _frame(136, 240, 21)
     steps = {dev: make_dock_step(136, 240, out_width=ow, out_height=oh, dynamic_roi=True,
                                  device=dev, **kw) for dev in (cuda, "cpu")}
-    assert steps[cuda].fused_compose and not steps["cpu"].fused_compose
     for r in COMPOSE_RECTS:
         rect = torch.tensor(r, dtype=torch.int32, device=cuda)
         n = compose.compose_dyn_panel.launches
         table, images, got_rect, out = _recorded_assembly(
             steps[cuda], torch.from_numpy(f).to(cuda), rect, monkeypatch)
         assert compose.compose_dyn_panel.launches == n + 1 and got_rect is rect
-        plain = dock_step.assemble_dyn_panel(table, images, rect)
+        plain = compose.assemble_dyn_panel(table, images, rect)
         assert torch.equal(out.panel, plain), (layout, r)
         wide = compose.compose_dyn_panel(table._replace(wide=True), images, rect)
         torch.cuda.synchronize()
         assert torch.equal(wide, plain), (layout, r)
+        n = compose.compose_dyn_panel.launches
         ref = steps["cpu"](torch.from_numpy(f), 1.25, torch.tensor(r, dtype=torch.int32))
+        assert compose.compose_dyn_panel.launches == n
         assert np.array_equal(out.panel.cpu().numpy(), ref.panel.numpy()), (layout, r)
 
 
@@ -1099,8 +1100,9 @@ def test_dock_compose_captured_step_replays_ten_rects(cuda):
 
 def test_dock_compose_counts_fused_frames(cuda):
     """A drag through a Dock on the card: every ``dock.dynamic`` frame
-    counts ``compose.fused``, none ``compose.plain``."""
+    makes one KC launch."""
     from obs_color_monitor_tpu_torch.models import Dock
+    from obs_color_monitor_tpu_torch.ops import compose
     from obs_color_monitor_tpu_torch.pipeline import profiler
 
     dock = Dock(DockConfig(), roi=cfg.ROIConfig(interleave=0, target_scale=2, x0=8, y0=4,
@@ -1111,6 +1113,7 @@ def test_dock_compose_counts_fused_frames(cuda):
         dock.push_nv12(b[:48], b[48:])
         dock.render_async()
     x0, y0, w, h, _, _ = dock._rects["roi"]
+    n = compose.compose_dyn_panel.launches
     profiler.reset()
     profiler.enable(True)
     try:
@@ -1126,8 +1129,7 @@ def test_dock_compose_counts_fused_frames(cuda):
         profiler.enable(False)
         profiler.reset()
     dynamic = sum(s["name"] == "dock.dynamic" for s in snap["spans"])
-    assert dynamic == 4 and snap["counters"].get("compose.fused") == dynamic
-    assert "compose.plain" not in snap["counters"]
+    assert dynamic == 4 and compose.compose_dyn_panel.launches - n == dynamic
 
 
 # KR, the stats scopes' images in one launch (ops/render.draw_stat_images),
@@ -1352,9 +1354,8 @@ def test_scope_render_full_step_one_launch_a_frame(cuda, level):
 def test_scope_render_dock_counts_fused_frames(cuda, logscale, monkeypatch):
     """A Dock on the card: every settled frame (a replay), every dynamic
     frame (a drag, a replay) and every skipped frame (interleave 1, the
-    eager composite) makes one KR launch and counts ``render.fused``, none
-    ``render.plain``; its panels equal those of a card Dock whose renders
-    take the plain chain, and a CPU Dock's."""
+    eager composite) makes one KR launch; its panels equal those of a card
+    Dock whose renders take the plain chain, and a CPU Dock's."""
     from obs_color_monitor_tpu_torch.models import Dock
     from obs_color_monitor_tpu_torch.ops import render as rd
     from obs_color_monitor_tpu_torch.pipeline import profiler
@@ -1406,8 +1407,6 @@ def test_scope_render_dock_counts_fused_frames(cuda, logscale, monkeypatch):
             profiler.enable(False)
             profiler.reset()
         assert rd.draw_stat_images.launches - n == len(planes) - 2
-        assert snap["counters"].get("render.fused") == len(planes) - 2
-        assert "render.plain" not in snap["counters"]
         routes = [s["name"] for s in snap["spans"] if s["name"] in ("dock.settled", "dock.dynamic")]
         if drag:
             assert routes.count("dock.dynamic") == len(planes) - 2

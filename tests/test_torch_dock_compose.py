@@ -2,7 +2,7 @@
 assembly (``ops/compose.py``), on the CPU: the slot table that
 ``make_dock_step(dynamic_roi=True)`` builds for each slot kind and layout,
 the kernel's by-value table, the wrapper's argument checks, its plain
-branch, and the Dock's ``compose.plain`` / ``compose.fused`` counters.
+branch, and the Dock's one assembly a dynamic frame.
 The kernel itself runs on a card only (``tests/test_torch_cuda.py``,
 ``test_dock_compose_*``)."""
 
@@ -205,24 +205,33 @@ def test_cpu_rect_runs_the_plain_assembly():
     n = C.compose_dyn_panel.launches
     got = C.compose_dyn_panel(table, images, rect)
     assert C.compose_dyn_panel.launches == n
-    assert torch.equal(got, dock_step.assemble_dyn_panel(table, images, rect))
+    assert torch.equal(got, C.assemble_dyn_panel(table, images, rect))
     assert torch.equal(got, panel) and got.shape == (784, 128, 4) and got.dtype == torch.uint8
-    assert step.fused_compose is False
     assert (C.compose_dyn_panel, "launches") in _counters()
 
 
-def test_dock_counts_each_dynamic_frame_plain_on_the_cpu():
-    """A drag through a CPU Dock: every ``dock.dynamic`` frame counts
-    ``compose.plain`` and none ``compose.fused``; a settled frame neither."""
+def test_dock_counts_each_dynamic_frame_plain_on_the_cpu(monkeypatch):
+    """A drag through a CPU Dock: every ``dock.dynamic`` frame assembles
+    its panel with one ``compose_dyn_panel`` call, which launches nothing;
+    a settled frame makes none."""
     dock = Dock(DockConfig(), roi=cfg.ROIConfig(interleave=0, target_scale=2, x0=8, y0=4,
                                                 x1=32, y1=16), device="cpu")
+    calls, wrapper = [], C.compose_dyn_panel
+
+    def spy(table, images, rect):
+        calls.append(rect)
+        return wrapper(table, images, rect)
+
+    monkeypatch.setattr(C, "compose_dyn_panel", spy)
     rng = np.random.default_rng(2)
     planes = [rng.integers(0, 256, (72, 96), dtype=np.uint8) for _ in range(6)]
     for b in planes[:2]:
         dock.push_nv12(b[:48], b[48:])
         dock.render_async()
+    assert not calls
     x0, y0, w, h, _, _ = dock._rects["roi"]
     x, y = x0 + w // 2, y0 + h // 2
+    n = wrapper.launches
     profiler.reset()
     profiler.enable(True)
     try:
@@ -232,14 +241,11 @@ def test_dock_counts_each_dynamic_frame_plain_on_the_cpu():
             dock.mouse_move(x + 2 * (k + 1), y + k + 1)
             dock.push_nv12(b[:48], b[48:])
             dock.render_async()
+            assert len(calls) == k + 1
         snap = profiler.snapshot()
     finally:
         profiler.enable(False)
         profiler.reset()
     dynamic = sum(s["name"] == "dock.dynamic" for s in snap["spans"])
-    assert dynamic == 4
-    assert snap["counters"].get("compose.plain") == dynamic
-    assert "compose.fused" not in snap["counters"]
-    counted = {c["span"] for c in snap["counts"] if c["name"] == "compose.plain"}
-    by_id = {s["id"]: s["name"] for s in snap["spans"]}
-    assert {by_id[i] for i in counted} == {"dock.dynamic"}
+    assert dynamic == 4 and len(calls) == dynamic
+    assert wrapper.launches == n

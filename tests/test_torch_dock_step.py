@@ -107,6 +107,96 @@ def test_compose_vstack_matches_jax(stackable):
     assert np.array_equal(got.numpy(), np.asarray(ref))
 
 
+# source dims (w, h) of each scope in a few typical configurations: a 4K
+# capture at scale 2, a portrait capture with a parade waveform and the
+# key legend OUTSIDE, and the dynamic step's (overlay slots of no size)
+LAYOUT_DIMS = {
+    "uhd_capture": dict(roi=(1920, 1080), vectorscope=(256, 256), waveform=(1920, 256),
+                        histogram=(256, 200), zebra=(1920, 1080), falsecolor=(1920, 1080),
+                        focuspeaking=(1920, 1080)),
+    "portrait_parade_key": dict(roi=(720, 1280), vectorscope=(256, 256), waveform=(2160, 256),
+                                histogram=(768, 600), zebra=(720, 1280), falsecolor=(792, 1280),
+                                focuspeaking=(720, 1280)),
+    "dynamic": dict(roi=(1280, 720), vectorscope=(256, 256), waveform=(1280, 768),
+                    histogram=(256, 200), zebra=(0, 0), falsecolor=(0, 0), focuspeaking=(0, 0)),
+}
+
+
+@pytest.mark.parametrize("panel", [(512, 1536), (64, 5)])  # the second too short: slots overlap
+@pytest.mark.parametrize("fp_actual", [False, True])
+@pytest.mark.parametrize("dims", sorted(LAYOUT_DIMS))
+def test_panel_layout_matches_jax(dims, fp_actual, panel):
+    """``ops/compose.panel_layout`` over every shown subset: its fitted
+    boxes, each at least one pixel, are the JAX ``dock_step._layout``'s
+    rects, and so are the port's ``dock_step._layout``; each box is drawn
+    as fitted but focus peaking's at actual size, the source's centred 1:1
+    window inside its band."""
+    from obs_color_monitor_tpu.dock_step import _layout as jax_layout
+    from obs_color_monitor_tpu_torch import dock_step
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    cx, cy = panel
+    for mask in range(1, 1 << len(dock_step.SCOPE_ORDER)):
+        shown = [(n, *LAYOUT_DIMS[dims][n]) for i, n in enumerate(dock_step.SCOPE_ORDER)
+                 if mask >> i & 1]
+        want = jax_layout(shown, cx, cy, fp_actual)
+        boxes = compose.panel_layout(shown, cx, cy, fp_actual)
+        assert {n: (f.x0, f.y0, max(f.w, 1), max(f.h, 1))
+                for n, (f, _) in boxes.items()} == want, shown
+        assert dock_step._layout(shown, cx, cy, fp_actual) == want
+        for (n, w_src, h_src), (f, b) in zip(shown, boxes.values()):
+            if n == "focuspeaking" and fp_actual:
+                w, h = min(f.w, w_src), min(f.h, h_src)
+                assert b == ((cx - w) // 2, f.y0, w, h, ((w_src - w) // 2, (h_src - h) // 2))
+            else:
+                assert b == f and b.crop is None
+
+
+DOCK_CASES = {
+    "default": dict(),
+    "all_six": dict(config=ALL6),
+    "actual_size_key_below": dict(config=ALL6,
+                                  falsecolor=J.FalseColorConfig(show_key=J.ShowKey.BELOW),
+                                  focuspeaking=J.FocusPeakingConfig(actual_size=True)),
+    "hidden_stack": dict(config=J.DockConfig(show_roi=False, show_histogram=False),
+                         waveform=J.WaveformConfig(display=J.DisplayMode.STACK)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DOCK_CASES))
+def test_dock_panel_equals_the_static_step(case):
+    """A CPU Dock at the full rect lays out and assembles its panel as the
+    static ``make_dock_step`` does (``Dock.render_device``): on a settled
+    frame and on the eager composite its panel is the step's, and its
+    ``_rects`` are the step's rects and dims; focus peaking's at actual
+    size is the window drawn inside the step's band."""
+    from obs_color_monitor_tpu_torch.config import ROIConfig
+    from obs_color_monitor_tpu_torch.models import Dock
+
+    dock = Dock(roi=ROIConfig(interleave=0, target_scale=2), device="cpu",
+                **_port_kwargs(DOCK_CASES[case]))
+    frame, _ = _frames("all_six")
+    cx, cy = 200, 900
+    for _ in range(3):
+        dock.push_frame(frame)
+        settled = dock.render_async(cx, cy).numpy()
+    rects = dict(dock._rects)
+    eager = dock.render_async(cx, cy).numpy()
+    assert dock._rects == rects
+    want = dock.render_device(frame, 0.0, cx, cy)
+    assert np.array_equal(settled, want) and np.array_equal(eager, want)
+    step = dock._device_step
+    assert not hasattr(step, "table") and list(rects) == list(step.rects)
+    for n, (x0, y0, w, h, w_src, h_src) in rects.items():
+        assert (w_src, h_src) == step.dims[n], n
+        bx, by, bw, bh = step.rects[n]
+        if n == "focuspeaking" and dock.focuspeaking.config.actual_size:
+            assert (x0, y0, w, h) == ((cx - min(bw, w_src)) // 2, by, min(bw, w_src),
+                                      min(bh, h_src))
+        else:
+            assert (x0, y0, w, h) == (bx, by, bw, bh), n
+
+
 def test_packed_rgba_frame_equals_rgba_frame():
     frame, _ = _frames("all_six")
     step = make_dock_step(H, W, dock=from_reference(ALL6), device="cpu")

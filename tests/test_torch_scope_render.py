@@ -4,7 +4,7 @@ route builds (the dock step's ``_stat_renders``, the Dock's composite, a
 scope's own ``render_image``) for every display mode, component family,
 colour type, level mode and zoom, the kernel's by-value table, the
 wrapper's argument checks, its plain branch against the golden renders on
-odd widths, and the Dock's ``render.plain`` / ``render.fused`` counters.
+odd widths, and the one draw of each Dock frame on every route.
 The kernel itself runs on a card only (``tests/test_torch_cuda.py``,
 ``test_scope_render_*``)."""
 
@@ -202,9 +202,9 @@ def test_dock_composite_draws_the_stats_scopes_once(case, monkeypatch):
     dock = _dock(**confs)
     _push(dock, 3)
     spy = _Spy(monkeypatch)
-    panel, _, all_shown, drew = dock._composite(128, 400, ["roi", "vectorscope", "waveform",
-                                                          "histogram", "zebra"])
-    assert all_shown and drew and panel.shape == (400, 128, 4)
+    panel, _, all_shown = dock._composite(128, 400, ["roi", "vectorscope", "waveform",
+                                                    "histogram", "zebra"])
+    assert all_shown and panel.shape == (400, 128, 4)
     scopes = (dock.vectorscope, dock.waveform, dock.histogram)
     assert len(spy.calls) == 1
     assert [j.kind for j in spy.calls[0]] == [R.VECTORSCOPE, R.WAVEFORM, R.HISTOGRAM]
@@ -426,22 +426,28 @@ def _counted(dock, frames):
         profiler.reset()
 
 
-def test_dock_counts_each_frame_plain_on_the_cpu():
-    """A CPU Dock: every settled frame, every skipped frame (interleave 1,
-    the eager composite) and every dynamic frame (a drag) counts one
-    ``render.plain`` and no ``render.fused``; a dock with its stats scopes
-    hidden counts neither."""
+def test_dock_counts_each_frame_plain_on_the_cpu(monkeypatch):
+    """A CPU Dock draws its stats scopes' images in one ``draw_stat_images``
+    call a frame, of the three jobs, and launches nothing: every settled
+    frame, every skipped frame (interleave 1, the eager composite) and
+    every dynamic frame (a drag); a dock with its stats scopes hidden
+    builds no job."""
+    spy = _Spy(monkeypatch)
+    jobs = lambda: [len(c) for c in spy.calls]
+    n = DRAW.launches
     dock = _dock()
     _push(dock, 2)
+    spy.calls.clear()
     snap = _counted(dock, lambda: _push(dock, 3, seed=5))
     assert sum(s["name"] == "dock.settled" for s in snap["spans"]) == 3
-    assert snap["counters"].get("render.plain") == 3 and "render.fused" not in snap["counters"]
+    assert jobs() == [3] * 3
 
     dock = _dock(interleave=1)
     _push(dock, 2)
+    spy.calls.clear()
     snap = _counted(dock, lambda: _push(dock, 4, seed=6))
     assert snap["counters"].get("dock.skipped") == 2
-    assert snap["counters"].get("render.plain") == 4 and "render.fused" not in snap["counters"]
+    assert jobs() == [3] * 4
 
     dock = Dock(DockConfig(), roi=cfg.ROIConfig(interleave=0, target_scale=2, x0=8, y0=4, x1=32,
                                                 y1=16), device="cpu")
@@ -456,52 +462,57 @@ def test_dock_counts_each_frame_plain_on_the_cpu():
         for k in range(4):
             b = rng.integers(0, 256, (72, 96), dtype=np.uint8)
             dock.mouse_move(x + 2 * (k + 1), y + k + 1)
+            m = len(spy.calls)
             dock.push_nv12(b[:48], b[48:])
             dock.render_async()
+            assert len(spy.calls) == m + 1
 
+    spy.calls.clear()
     snap = _counted(dock, drag)
     dynamic = sum(s["name"] == "dock.dynamic" for s in snap["spans"])
-    assert dynamic == 4 and snap["counters"].get("render.plain") == dynamic
-    assert "render.fused" not in snap["counters"]
-    counted = {c["span"] for c in snap["counts"] if c["name"] == "render.plain"}
-    by_id = {s["id"]: s["name"] for s in snap["spans"]}
-    assert {by_id[i] for i in counted} == {"dock.dynamic"}
+    assert dynamic == 4 and jobs() == [3] * dynamic
 
     hidden = Dock(DockConfig(show_vectorscope=False, show_waveform=False, show_histogram=False),
                   roi=cfg.ROIConfig(interleave=0, target_scale=2), device="cpu")
     _push(hidden, 2)
-    snap = _counted(hidden, lambda: _push(hidden, 2, seed=8))
-    assert "render.plain" not in snap["counters"] and "render.fused" not in snap["counters"]
+    spy.calls.clear()
+    _counted(hidden, lambda: _push(hidden, 2, seed=8))
+    assert not any(jobs())
+    assert DRAW.launches == n
 
 
 @pytest.mark.parametrize("interleave", [0, 1])
-def test_dock_counts_nothing_when_its_stats_scopes_draw_nothing(interleave):
-    """Stats scopes that are shown but bypassed build no job: their settled
-    and skipped frames count neither ``render.plain`` nor
-    ``render.fused``."""
+def test_dock_counts_nothing_when_its_stats_scopes_draw_nothing(interleave, monkeypatch):
+    """Stats scopes that are shown but bypassed build no job on their
+    settled and skipped frames."""
     off = dict(vectorscope=cfg.VectorscopeConfig(bypass=True),
                waveform=cfg.WaveformConfig(bypass=True),
                histogram=cfg.HistogramConfig(bypass=True))
     dock = _dock(interleave=interleave, **off)
     _push(dock, 2)
+    spy = _Spy(monkeypatch)
     snap = _counted(dock, lambda: _push(dock, 4, seed=9))
-    assert "render.plain" not in snap["counters"] and "render.fused" not in snap["counters"]
+    assert not any(len(c) for c in spy.calls)
     if interleave:
         assert snap["counters"].get("dock.skipped") == 2
 
 
 @pytest.mark.parametrize("dynamic_roi", [False, True])
-def test_dock_step_says_whether_it_draws(dynamic_roi):
-    """``step.draws_stats``: whether the step's ``_stat_renders`` builds a
-    job, that is whether any stats scope is shown."""
-    def step(**shown):
-        return make_dock_step(H, W, scale=2, input_format="nv12", dynamic_roi=dynamic_roi,
-                              dock=DockConfig(**shown), device="cpu")
+def test_dock_step_says_whether_it_draws(dynamic_roi, monkeypatch):
+    """The step's ``_stat_renders`` hands one job a shown stats scope to
+    one draw a call, and none when no stats scope is shown."""
+    spy = _Spy(monkeypatch)
+    rect = (torch.tensor((5, 4, 30, 20), dtype=torch.int32),) if dynamic_roi else ()
 
-    assert step().draws_stats
-    assert step(show_vectorscope=False, show_waveform=False).draws_stats
-    assert not step(show_vectorscope=False, show_waveform=False,
-                    show_histogram=False).draws_stats
+    def jobs(**shown):
+        make_dock_step(H, W, scale=2, dynamic_roi=dynamic_roi, dock=DockConfig(**shown),
+                       device="cpu")(_frame(), 0.5, *rect)
+        return len(spy.calls[-1])
+
+    assert jobs() == 3
+    assert jobs(show_vectorscope=False, show_waveform=False) == 1
+    assert jobs(show_vectorscope=False, show_waveform=False, show_histogram=False) == 0
+    assert len(spy.calls) == 3
 
 
 @pytest.mark.parametrize("logscale", [False, True])

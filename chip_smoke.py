@@ -29,9 +29,11 @@ any failure raises and the exit code is non-zero:
    not a multiple of 16 and on frames with fewer rows than a waveform
    cluster has blocks; K9 (the fused ingest statistics) at scale 2 on
    3840x2160 and scale 1 on 1920x1080 and odd shapes, and one 270x480 case
-   against the golden model; KC (the dynamic dock step's panel assembly)
-   on the 4K dock's images against its plain version at the drag's rects
-   and the edge rects, in int32 and in 64-bit index math; KR (the stats
+   against the golden model; KC (the dock panel in one launch) on the 4K
+   dynamic dock step's images against its plain version at the drag's
+   rects and the edge rects, and on the static tables of the settled 4K
+   and desktop docks (the settled route's panel), in int32 and in 64-bit
+   index math; KR (the stats
    scopes' images in one launch) on the 4K camera dock's and the 2560x1440
    desktop dock's job tables, and over every display mode, component
    family, colour type, level mode, logscale and zoom at the waveform
@@ -100,7 +102,9 @@ any failure raises and the exit code is non-zero:
    4K full step, the 4K NV12 dock step, its dynamic-ROI form (also with
    its panel assembled by the plain version, the torch ops KC replaces),
    KR on the 4K dock's and the desktop dock's job tables (the waveform
-   1920 and 1280 wide) beside the plain chain of renders it replaces,
+   1920 and 1280 wide) beside the plain chain of renders it replaces, KC
+   on the settled 4K and desktop docks' static tables beside the torch
+   chain it replaces (keys ``kc_static``, ``kc_static_1440``),
    the settled Dock and the batched step at B = 1, 2, 4; each kernel beside its plain
    version and, where one exists, the one PyTorch call that computes the
    same function (K2 and K3 also in rect mode, K2 also on a flat frame, K6
@@ -669,7 +673,7 @@ def read_counts() -> dict:
         "K3 rect": fused_overlays.fused_overlays_planes.launches_rect,
         "K4": decode.nv12_decode.launches,
         "K5": decode.nv12_16_decode.launches,
-        "KC": compose.compose_dyn_panel.launches,
+        "KC": compose.compose_panel.launches,
         "KR": render.draw_stat_images.launches,
     }
 
@@ -685,7 +689,7 @@ def reset_counts() -> None:
     fo = fused_overlays.fused_overlays_planes
     fo.launches = fo.launches_rect = fo.launches_vec = 0
     decode.nv12_decode.launches = decode.nv12_16_decode.launches = 0
-    compose.compose_dyn_panel.launches = 0
+    compose.compose_panel.launches = 0
     render.draw_stat_images.launches = 0
 
 
@@ -869,18 +873,20 @@ class plain_assembly:
     def __enter__(self):
         from obs_color_monitor_tpu_torch.ops import compose
 
-        def plain(table, images, rect):
+        def plain(table, images, rect=None):
+            if rect is None:
+                return compose.assemble_static_panel(table, images)
             return compose.assemble_dyn_panel(table, images, rect)
 
-        self.wrapper = compose.compose_dyn_panel
+        self.wrapper = compose.compose_panel
         plain.launches = self.wrapper.launches  # the captures read and restore it
-        compose.compose_dyn_panel = plain
+        compose.compose_panel = plain
 
     def __exit__(self, *exc):
         from obs_color_monitor_tpu_torch.ops import compose
 
-        self.wrapper.launches = compose.compose_dyn_panel.launches
-        compose.compose_dyn_panel = self.wrapper
+        self.wrapper.launches = compose.compose_panel.launches
+        compose.compose_panel = self.wrapper
 
 
 def phase_compose(device, err: dict, h=H4K, w=W4K, roi=ROI) -> None:
@@ -906,9 +912,9 @@ def phase_compose(device, err: dict, h=H4K, w=W4K, roi=ROI) -> None:
                                                                   device=device))
         want = compose.assemble_dyn_panel(table, images, rect).cpu()
         for t in (table, table._replace(wide=True)):
-            n = compose.compose_dyn_panel.launches
-            got = compose.compose_dyn_panel(t, images, rect).cpu()
-            if compose.compose_dyn_panel.launches - n != (device.type == "cuda"):
+            n = compose.compose_panel.launches
+            got = compose.compose_panel(t, images, rect).cpu()
+            if compose.compose_panel.launches - n != (device.type == "cuda"):
                 raise AssertionError("KC: not one launch a call")
             worst = max(worst, max_abs_err(got, want))
     err["KC"] = worst
@@ -916,6 +922,85 @@ def phase_compose(device, err: dict, h=H4K, w=W4K, roi=ROI) -> None:
         raise AssertionError(f"KC: panel differs from the plain assembly by {worst}")
     print(f"KC: the 4K dock's panel equal to the plain assembly at {len(rects)} rects, int32 "
           "and 64-bit", flush=True)
+
+
+def static_assemblies(device) -> dict:
+    """{name: (slot table, sources)} of the benchmark's settled docks'
+    static panels, from each Dock's own panel inputs
+    (``Dock._panel_inputs``, ``compose.static_inputs``) once the route is
+    settled on NV12 frames: 4K with focus peaking, the 2560x1440 desktop
+    without it."""
+    from obs_color_monitor_tpu_torch import DockConfig, ROIConfig
+    from obs_color_monitor_tpu_torch.dock_step import SCOPE_ORDER
+    from obs_color_monitor_tpu_torch.models import Dock
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    out = {}
+    for name, (h, w, show) in (("4K", (H4K, W4K, dict(show_focuspeaking=True))),
+                               ("desktop", (1440, 2560, {}))):
+        nv12 = make_nv12(h, w, 790 + h)
+        dock = Dock(DockConfig(width=512, height=1536, **show),
+                    roi=ROIConfig(interleave=0, target_scale=2), device=device)
+        for _ in range(3):
+            dock.push_nv12(*nv12)
+            dock.render_async()
+        cx, cy = dock.config.width, dock.config.height
+        images, boxes, _, _ = dock._panel_inputs(cx, cy, [n for n in SCOPE_ORDER
+                                                          if dock.shown(n)])
+        out[name] = compose.static_inputs(images, boxes, cx, cy)
+    return out
+
+
+def phase_static_compose(device, err: dict, assemblies: dict) -> None:
+    """KC on the settled docks' static tables (``static_assemblies``: the
+    4K camera dock, the desktop dock) against the plain version on the same
+    sources, in int32 and in 64-bit index math, one launch a call."""
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    worst = 0
+    for name, (table, sources) in assemblies.items():
+        want = compose.assemble_static_panel(table, sources).cpu()
+        for t in (table, table._replace(wide=True)):
+            n = compose.compose_panel.launches
+            got = compose.compose_panel(t, sources).cpu()
+            if compose.compose_panel.launches - n != (device.type == "cuda"):
+                raise AssertionError("KC static: not one launch a call")
+            worst = max(worst, max_abs_err(got, want))
+        print(f"KC static: {name} dock, slots " + ", ".join(
+            f"{s.name} {s.kind} {s.band}" for s in table.slots), flush=True)
+    err["KC static"] = worst
+    if worst:
+        raise AssertionError(f"KC static: panel differs from the plain version by {worst}")
+    print("KC static: the 4K and desktop settled docks' panels equal to the plain version, "
+          "int32 and 64-bit", flush=True)
+
+
+def phase_static_timing(card: str, assemblies: dict) -> tuple[dict, dict, dict]:
+    """KC alone on the settled docks' static tables (``static_assemblies``:
+    4K, desktop) and the torch chain it replaces, on the card: event times,
+    device times and graph replays, as ``phase_timing`` keys them, and the
+    bound: the panel written once, about one 4-byte sample read per panel
+    pixel, ~40 integer operations a pixel."""
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    fns, bounds = {}, {}
+    for key, args in zip(("kc_static", "kc_static_1440"), assemblies.values()):
+        fns[key] = lambda a=args: compose.compose_panel(*a)
+        fns[key + "_plain"] = lambda a=args: compose.assemble_static_panel(*a)
+        px = args[0].out_w * args[0].out_h
+        bounds["KC static" if key == "kc_static" else "KC static desktop"] = bound(
+            px * 4 * 2, px * 40)
+    t = time_ms(fns)
+    for k, v in t.items():
+        print(f"time {k}: {v:.4f} ms  [{card}]", flush=True)
+    kernels = {k: fn for k, fn in fns.items() if "plain" not in k}
+    dev = device_ms(kernels, card)
+    for k, v in graph_ms(kernels).items():
+        print(f"graph time {k}: {v:.4f} ms  [{card}]", flush=True)
+        dev[k] += (v,)
+    for k, (ms, by) in sorted(bounds.items()):
+        print(f"bound {k}: {ms:.4f} ms ({by})", flush=True)
+    return t, bounds, dev
 
 
 def dock_jobs(device, h: int, w: int, seed: int) -> list:
@@ -1073,18 +1158,18 @@ def dock_paths(h=H4K, w=W4K, roi=ROI):
     rgba = [make_frame(h, w, "random", 300)]
     return [
         ("dock nv12", dock(input_format="nv12", dock=all6),
-         [make_nv12(h, w, 200 + i) for i in range(4)], "nv12", ("K1", "K2", "K3", "K4", "KR"),
-         "K2"),
+         [make_nv12(h, w, 200 + i) for i in range(4)], "nv12",
+         ("K1", "K2", "K3", "K4", "KR", "KC"), "K2"),
         ("dock p010", dock(input_format="nv12", nv12_shift=8, dock=all6),
          [make_nv12(h, w, 210 + i, 10, True) for i in range(2)], "nv12",
-         ("K1", "K2", "K3", "K5", "KR"), "K2"),
+         ("K1", "K2", "K3", "K5", "KR", "KC"), "K2"),
         ("dock rgba roi_rect", dock(dock=all6, roi_rect=roi,
                                     histogram=HistogramConfig(components=Components.YUV)),
-         rgba, "rgba", ("K1", "K3", "K6", "K8", "KR"), "K6"),
+         rgba, "rgba", ("K1", "K3", "K6", "K8", "KR", "KC"), "K6"),
         ("dock full-res overlays", dock(dock=all6, overlays_on_capture=False),
-         rgba, "rgba", ("K1", "K2", "K3", "KR"), "K2"),
+         rgba, "rgba", ("K1", "K2", "K3", "KR", "KC"), "K2"),
         ("dock vectorscope only", dock(dock=vs_only),
-         rgba, "rgba", ("K1", "K3", "K7", "KR"), "K2"),
+         rgba, "rgba", ("K1", "K3", "K7", "KR", "KC"), "K2"),
         ("full_step nv12", lambda d: make_full_step(h, w, scale=2, input_format="nv12",
                                                     device=d),
          [make_nv12(h, w, 220)], "nv12", ("K1", "K2", "K4", "KR"), "K2"),
@@ -1140,10 +1225,11 @@ def phase_captured(device, h=H4K, w=W4K, roi=ROI) -> dict:
          "zebra", ("K1", "K2", "KR")),
         ("captured dock nv12", lambda d: make_dock_step(
             h, w, scale=2, input_format="nv12", dock=all6, device=d), nv12, "nv12", (),
-         "panel", ("K1", "K2", "K3", "K4", "KR")),
+         "panel", ("K1", "K2", "K3", "K4", "KR", "KC")),
         ("captured dock nv12 dynamic_roi", lambda d: make_dock_step(
             h, w, scale=2, input_format="nv12", dock=all6, dynamic_roi=True, device=d), nv12,
-         "nv12", (roi,), "panel", ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect", "KR")),
+         "nv12", (roi,), "panel", ("K1", "K2", "K3", "K4", "K2 rect", "K3 rect", "KR",
+                                     "KC")),
     ]
     by_path = {}
     for name, build, host, fmt, extra, field, needs in steps:
@@ -1203,7 +1289,7 @@ def phase_captured(device, h=H4K, w=W4K, roi=ROI) -> dict:
             panels.append(d.render_async())
             if card and i >= warm:
                 counts_i = {k: v - before[k] for k, v in read_counts().items()}
-                if device.type == "cuda" and any(counts_i[k] != 1 for k in ("K1", "K3", "KR")):
+                if device.type == "cuda" and any(counts_i[k] != 1 for k in ("K1", "K3", "KR", "KC")):
                     raise AssertionError(f"{name} frame {i}: {counts_i}")
                 total = {k: v + counts_i[k] for k, v in total.items()}
             if eager is not None and not torch.equal(eager, panels[-1]):
@@ -2080,7 +2166,7 @@ def phase_timing(device, card: str) -> tuple[dict, dict]:
     fns["dock_nv12_dynamic_graph_plain_assembly"] = lambda: dyn_plain((y, uv), 1.0, roi_t)
     # KC alone on the step's images, and its plain version on the card
     kc_args = dyn_assembly(dyn, (y, uv), roi_t)
-    fns["kc"] = lambda: compose.compose_dyn_panel(*kc_args)
+    fns["kc"] = lambda: compose.compose_panel(*kc_args)
     fns["kc_plain"] = lambda: compose.assemble_dyn_panel(*kc_args)
     # KC: the panel written once and about one 4-byte source sample read
     # per panel pixel; ~100 integer operations a pixel
@@ -3111,7 +3197,7 @@ KERNELS = [  # id, wrapper, source, TPU kernel it replaces, timing key, library 
      "k8_library"),
     ("K9", "fused_ingest_stats_scale2 (K1's scale launch, then K2)", "frame_pipeline.cu",
      "ops/pallas_stats.py:419", "k9", "k9_library"),
-    ("KC", "compose_dyn_panel", "dock_compose.cu",
+    ("KC", "compose_panel", "dock_compose.cu",
      "dock_step.py:485-710 (step_dyn's composite in XLA ops; no Pallas kernel)", "kc", None),
     ("KR", "draw_stat_images", "scope_render.cu",
      "ops/render.py (the stats renders, graticule blend and zoom in XLA ops; no Pallas "
@@ -3183,6 +3269,22 @@ def kernel_line(launches: dict, by_path: dict, err: dict, t: dict, bounds: dict,
             entry.update({"flat_ms": t["k2_flat"], "flat_device_ms": dev["k2_flat"][0],
                           "flat_device_span_ms": dev["k2_flat"][1],
                           "flat_graph_ms": dev["k2_flat"][2]})
+        if kid == "KC":
+            entry.update({
+                "static_max_abs_err": err["KC static"],
+                "static_ms": t["kc_static"], "static_plain_ms": t["kc_static_plain"],
+                "static_device_ms": dev["kc_static"][0], "static_graph_ms": dev["kc_static"][2],
+                "static_bound_ms": bounds["KC static"][0],
+                "static_desktop_ms": t["kc_static_1440"],
+                "static_desktop_plain_ms": t["kc_static_1440_plain"],
+                "static_desktop_device_ms": dev["kc_static_1440"][0],
+                "static_desktop_graph_ms": dev["kc_static_1440"][2],
+                "static_desktop_bound_ms": bounds["KC static desktop"][0],
+            })
+            print(f"KC static: device / graph ms, 4K dock {dev['kc_static'][0]:.4f} / "
+                  f"{dev['kc_static'][2]:.4f}, desktop dock {dev['kc_static_1440'][0]:.4f} / "
+                  f"{dev['kc_static_1440'][2]:.4f} (bound {bounds['KC static'][0]:.4f})",
+                  flush=True)
         if kid == "KR":
             entry.update({"desktop_ms": t["kr_1440"], "desktop_plain_ms": t["kr_1440_plain"],
                           "desktop_device_ms": dev["kr_1440"][0],
@@ -3242,6 +3344,8 @@ def main() -> int:
     phase_rect_kernels(device, err)
     phase_ingest(device, err)
     phase_compose(device, err)
+    assemblies = static_assemblies(device)
+    phase_static_compose(device, err, assemblies)
     phase_render(device, err)
     torch.cuda.synchronize()
     by_path = {**phase_main_path(device), **phase_dock_paths(device),
@@ -3259,6 +3363,9 @@ def main() -> int:
     by_path.update(mesh_counts)
     phase_golden(device)
     t, bounds, dev = phase_timing(device, card)
+    for whole, part in zip((t, bounds, dev), phase_static_timing(card, assemblies)):
+        whole.update(part)
+    del assemblies
     phase_profile(device, card)
     by_path.update(phase_driver_soak(device, card))
     launches: dict = {}

@@ -8,15 +8,17 @@ K5), ``ops/fused.analyze`` (K1, K2), the three overlays on the capture
 panel lives in ``ops/compose``, which the streaming Dock shares: its
 layout (the vertical stack with the reference's aspect rules,
 src/scope-widget.cpp:99-175; :func:`_layout` is its boxes as this step
-clamps them) and the static assembly, slices and small nearest-resize
-gathers.  With ``dynamic_roi=True`` (the JAX step_dyn, ``:485-710``) the
-ROI is a (4,) int32 device tensor that K2, K3 and the panel's assembly
-read on the device: a new rect changes no launch and no host work.  The
-assembly (the shaded preview, the slot samplers, the key legend and the
-composite) is one kernel launch on a card (KC,
-``ops/compose.compose_dyn_panel``) and its plain version's torch ops on
-the CPU.  On a CUDA device the step is captured once as a CUDA graph and
-replayed (``graphs.CapturedStep``, the counterpart of the JAX step's
+clamps them) and its assembly, one kernel launch on a card (KC) and its
+plain version's torch ops on the CPU: the static step's panel from its
+layout's slot table (the preview from the capture's planes, nearest
+resizes, a 1:1 window; ``ops/compose.assemble_panel``).  With
+``dynamic_roi=True`` (the JAX step_dyn, ``:485-710``) the ROI is a (4,)
+int32 device tensor that K2, K3 and the panel's assembly read on the
+device: a new rect changes no launch and no host work; the assembly (the
+shaded preview, the slot samplers, the key legend and the composite) is
+``ops/compose.compose_panel`` on the table that ``ops/compose.panel_table``
+builds once.  On a CUDA device the step is captured once as a CUDA graph
+and replayed (``graphs.CapturedStep``, the counterpart of the JAX step's
 ``@jax.jit``).
 """
 
@@ -359,7 +361,7 @@ def make_dock_step(
                                                           lut_n=fc_lut.shape[0]))
             images.update(zebra=zb, falsecolor=fc, focuspeaking=fp)
             return DockStepOutput(
-                panel=compose.compose_dyn_panel(table, images, rect),
+                panel=compose.compose_panel(table, images, rect),
                 vs_counts=vs_counts,
                 wv_counts=wv_counts,
                 hi_counts=hi_counts.to(torch.uint32),
@@ -389,7 +391,7 @@ def make_dock_step(
         )
         images = {}
         if "roi" in rects:
-            images["roi"] = planes_to_rgba(res.planes)
+            images["roi"] = compose.Preview(res.planes)
         vs_counts, wv_counts, hi_counts = _stat_renders(res, sw * sh, images)
         ov_src = res.planes if overlays_on_capture else planes
         zb = fc = fp = None

@@ -29,7 +29,11 @@ What a captured step does on a CUDA device:
   arguments) it runs the step twice on a side stream (the warm-up, which
   builds the kernels and every cached constant), then captures one call
   with ``torch.cuda.graph`` in thread-local mode, so that other threads
-  (a pipeline driver's producer) may go on working meanwhile.  Python's
+  (a pipeline driver's producer) may go on working meanwhile.  It captures
+  on a stream that no other code of the package draws
+  (:func:`capture_stream`): work that another thread issues to a stream
+  under capture joins the graph, and an event recorded there cannot be
+  waited on ("CUDA error: invalid argument").  Python's
   cyclic collector is held off during the capture: a dead reference cycle
   that holds another graph (a Dock and its settled step refer to each
   other) would destroy that graph mid-capture, which CUDA does not permit
@@ -81,11 +85,30 @@ def _counters() -> list:
             (vs, "launches_wv_only"), (vs, "launches_rect"),
             (fo, "launches"), (fo, "launches_rect"), (fo, "launches_vec"),
             (decode.nv12_decode, "launches"), (decode.nv12_16_decode, "launches"),
-            (compose.compose_dyn_panel, "launches"), (render.draw_stat_images, "launches")]
+            (compose.compose_panel, "launches"), (render.draw_stat_images, "launches")]
 
 
 def _read_counters(counters) -> list[int]:
     return [getattr(obj, name) for obj, name in counters]
+
+
+_capture_streams: dict = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream every capture on ``device`` records on: a stream of
+    PyTorch's high-priority pool, which nothing else in the package draws
+    from.  ``torch.cuda.graph``'s own default is a stream of the
+    default-priority pool, which hands out its 32 streams in turn, so the
+    32nd stream drawn after it (a driver's upload stream, say) would be
+    the capture's own.  A replay runs on the caller's stream: the capture
+    stream's priority does not carry over."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _capture_streams.get(idx)
+    if stream is None:
+        stream = _capture_streams[idx] = torch.cuda.Stream(torch.device("cuda", idx),
+                                                           priority=-1)
+    return stream
 
 
 def _is_number(v) -> bool:
@@ -250,7 +273,8 @@ class CapturedStep:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, stream=capture_stream(dev),
+                                  capture_error_mode="thread_local"):
                 outputs = self.eager(*inputs)
         finally:
             if collecting:

@@ -54,12 +54,10 @@ from ..config import (
 from ..dock_step import SCOPE_ORDER, make_dock_step
 from ..graphs import captured
 from ..ops import compose
-from ..ops.compose import shaded_preview as _shaded_preview
 from ..ops.convert import (
     OPAQUE_BLACK,
     host_packed_view,
     nv12_to_packed,
-    planes_to_rgba,
 )
 from ..ops.fused import AnalysisResult, analyze
 from ..pipeline import profiler
@@ -121,17 +119,23 @@ class _RoiPreview(Scope):
             self._buf_cropped[self._w_buf] = surface.cropped
             self._publish(surface.result.planes)
 
-    def render_image(self):
+    def preview(self) -> Optional[compose.Preview]:
+        """What the row shows, as the panel draws it: the published planes,
+        with the selection shaded unless they are the crop itself
+        (shading it against its own dims would shade it twice) or the
+        selection is the full frame; None before the first frame."""
         v = self._read()
         if v is None:
             return None
         h, w = v.shape[-2], v.shape[-1]
         rect = self._hub.config.resolve_rect(w, h)
         if self._buf_cropped[self._w_buf ^ 1] or rect == (0, 0, w, h):
-            # the crop itself (shading it against its own dims would shade
-            # it twice), or the full frame
-            return planes_to_rgba(v)
-        return _shaded_preview(v, rect)
+            return compose.Preview(v)
+        return compose.Preview(v, rect)
+
+    def render_image(self):
+        p = self.preview()
+        return None if p is None else p.rgba()
 
     @property
     def width(self) -> int:
@@ -344,15 +348,27 @@ class Dock:
     def _composite(self, cx: int, cy: int, shown: list):
         """The shown scopes' renders of the published buffers, composited
         (``ops/compose``): (panel, {name: its display rect and source dims},
-        whether every shown scope had data).  A scope with no image or no
-        room is left out; its slot's height stays taken.  Device work only:
-        it reads the scopes' state and changes none (the settled route
-        captures it)."""
+        whether every shown scope had data).  Device work only: it reads the
+        scopes' state and changes none (the settled route captures it)."""
+        images, boxes, rects, all_shown = self._panel_inputs(cx, cy, shown)
+        if not boxes:
+            black = torch.full((cy, cx), OPAQUE_BLACK, dtype=torch.int32, device=self.device)
+            return black.view(torch.uint8).view(cy, cx, 4), rects, all_shown
+        return compose.assemble_panel(images, boxes, cx, cy), rects, all_shown
+
+    def _panel_inputs(self, cx: int, cy: int, shown: list):
+        """What :meth:`_composite` draws: (the shown scopes' images, by
+        name; their boxes, in drawing order; {name: its display rect and
+        source dims}; whether every shown scope had data).  A scope with no
+        image or no room has no box; its slot's height stays taken."""
         # the overlay scopes on the same planes take one K3 launch together,
-        # the stats scopes one KR launch
+        # the stats scopes one KR launch; the preview is drawn from the
+        # published planes
         scopes = [self.scopes[n] for n in shown]
         shared = {**shared_overlay_images(scopes), **shared_stat_images(scopes)}
-        images = {n: shared[s] if s in shared else s.render_image() for n, s in zip(shown, scopes)}
+        images = {n: shared[s] if s in shared else
+                  s.preview() if s is self.roi_preview else s.render_image()
+                  for n, s in zip(shown, scopes)}
         dims = {n: (0, 0) if img is None else (int(img.shape[1]), int(img.shape[0]))
                 for n, img in images.items()}
         boxes = {n: b for n, (_, b) in compose.panel_layout(
@@ -360,11 +376,7 @@ class Dock:
                      self.focuspeaking.config.actual_size).items()
                  if images[n] is not None and b.w > 0 and b.h > 0}
         rects = {n: (*b[:4], *dims[n]) for n, b in boxes.items()}
-        all_shown = all(img is not None for img in images.values())
-        if not boxes:
-            black = torch.full((cy, cx), OPAQUE_BLACK, dtype=torch.int32, device=self.device)
-            return black.view(torch.uint8).view(cy, cx, 4), rects, all_shown
-        return compose.assemble_panel(images, boxes, cx, cy), rects, all_shown
+        return images, boxes, rects, all(img is not None for img in images.values())
 
     def _frame_dims(self, frame) -> tuple[int, int]:
         """(h, w) of a pending frame: NV12, packed (H, W) or (H, W, 4)."""

@@ -7,14 +7,20 @@ alike; it imports nothing above ``ops``.
   own edge rule (the dock step draws an empty box as one pixel, the Dock
   skips it).
 - :func:`assemble_panel`: the static panel, each image nearest-resized into
-  its box (or focus peaking's 1:1 window) and stacked by
-  :func:`compose_vstack`.
-- KC, the dynamic-ROI step's panel in one launch (no JAX counterpart
-  kernel): :func:`panel_table` is the slot table that
-  ``make_dock_step(dynamic_roi=True)`` builds once; :func:`compose_dyn_panel`
-  launches ``ops/csrc/dock_compose.cu`` for a rect on a card and runs the
-  plain version :func:`assemble_dyn_panel` (the JAX step_dyn's composite,
-  ``dock_step.py:485-710``) for a CPU rect.
+  its box (or focus peaking's 1:1 window), the ROI preview from the
+  capture's planes (:class:`Preview`): the slot table of its layout
+  (:func:`static_table`, built once per layout) drawn by
+  :func:`compose_panel`.
+- KC, the dock panel in one launch (no JAX counterpart kernel): a slot
+  table (:class:`PanelTable`) drawn by :func:`compose_panel`, which
+  launches ``ops/csrc/dock_compose.cu`` on a card and runs the table's
+  plain version on the CPU.  The dynamic-ROI step's table
+  (:func:`panel_table`, built once by ``make_dock_step(dynamic_roi=True)``)
+  reads the rect on the device; its plain version is
+  :func:`assemble_dyn_panel` (the JAX step_dyn's composite,
+  ``dock_step.py:485-710``).  A static table (the settled route's and the
+  static step's) reads no rect; its plain version is
+  :func:`assemble_static_panel` (the resizes and :func:`compose_vstack`).
 """
 
 from __future__ import annotations
@@ -211,28 +217,68 @@ def compose_vstack(patches: list, out_w: int, out_h: int) -> torch.Tensor:
     return torch.cat(bands, dim=0).view(torch.uint8).view(out_h, out_w, 4)
 
 
+class Preview(NamedTuple):
+    """The ROI preview as a panel source: the capture's (4, sh, sw) u8
+    planes, drawn as they are (``rect`` None) or with the selection
+    ``rect`` (x0, y0, x1, y1, used as given) shaded around and outlined
+    (:func:`shaded_preview`)."""
+
+    planes: torch.Tensor
+    rect: Optional[tuple[int, int, int, int]] = None
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        """The (h, w, 4) shape of the RGBA image it stands for."""
+        return (self.planes.shape[-2], self.planes.shape[-1], 4)
+
+    def rgba(self) -> torch.Tensor:
+        """The (h, w, 4) u8 image itself."""
+        if self.rect is None:
+            return planes_to_rgba(self.planes)
+        return shaded_preview(self.planes, self.rect)
+
+
 def assemble_panel(images: dict, boxes: dict, out_w: int, out_h: int) -> torch.Tensor:
     """The static panel, (out_h, out_w, 4) u8: each scope's image of
-    ``images`` ((H, W, 4) u8 or packed (H, W) int32, by name) drawn in its
-    :class:`Box` of ``boxes`` (by name, in drawing order), nearest-resized
-    or its 1:1 window, and the patches stacked by :func:`compose_vstack`."""
-    patches = []
-    for name, b in boxes.items():
-        if b.crop is None:
-            patch = _resize_nearest_rgba(images[name], b.h, b.w)
-        else:
-            sx, sy = b.crop
-            patch = _rgba_view(images[name])[sy : sy + b.h, sx : sx + b.w]
-        patches.append((b.x0, b.y0, patch))
-    return compose_vstack(patches, out_w, out_h)
+    ``images`` ((H, W, 4) u8, packed (H, W) int32, or for the ROI preview a
+    :class:`Preview`, by name) drawn in its :class:`Box` of ``boxes`` (by
+    name, in drawing order), nearest-resized or its 1:1 window, as
+    :func:`compose_vstack` stacks the patches.  The slot table comes from
+    :func:`static_table`'s cache (:func:`static_inputs`);
+    :func:`compose_panel` draws it (one launch for CUDA images, the plain
+    version for CPU ones)."""
+    return compose_panel(*static_inputs(images, boxes, out_w, out_h))
 
 
-# slot kinds, as dock_compose.cu numbers them: the ROI preview (the
-# capture's planes, shaded by the rect), a static nearest resize
-# (vectorscope, histogram), the waveform (rect-mapped columns), an overlay
-# fitted to the rect, focus peaking at actual size, false colour with its
-# key legend
-PREVIEW, NEAREST, WAVEFORM, FITTED, ACTUAL, KEYED = range(6)
+def static_inputs(images: dict, boxes: dict, out_w: int, out_h: int) -> tuple:
+    """(slot table, sources) of :func:`assemble_panel`'s arguments, as
+    :func:`compose_panel` takes them: the layout's table from
+    :func:`static_table`'s cache, and each image by name (a
+    :class:`Preview` as its planes)."""
+    layout = tuple((n, *b, _source_key(images[n])) for n, b in boxes.items())
+    sources = {n: img.planes if isinstance(img, Preview) else img for n, img in images.items()}
+    return static_table(layout, (out_w, out_h)), sources
+
+
+def _source_key(img) -> tuple:
+    """What a static table takes of a panel source, in plain tuples of
+    numbers and strings (which the cyclic collector stops tracking): a
+    :class:`Preview`'s planes shape and selection, an image's shape."""
+    if isinstance(img, Preview):
+        return ("planes", tuple(img.planes.shape), img.rect)
+    return tuple(img.shape)
+
+
+# slot kinds, as dock_compose.cu numbers them.  The dynamic step's, which
+# read the rect: the ROI preview (the capture's planes, shaded by the
+# rect), the waveform (rect-mapped columns), an overlay fitted to the rect,
+# focus peaking at actual size, false colour with its key legend.  The
+# static panel's, which read none: the capture's planes as they are or
+# shaded by a fixed selection, and a fixed 1:1 window.  Both: a nearest
+# resize of a fixed source (the vectorscope, the histogram; any image of
+# the static panel)
+PREVIEW, NEAREST, WAVEFORM, FITTED, ACTUAL, KEYED, PLANES, WINDOW = range(8)
+RECT_KINDS = frozenset((PREVIEW, WAVEFORM, FITTED, ACTUAL, KEYED))
 MAX_SLOTS = 7  # dock_step.SCOPE_ORDER
 
 
@@ -243,18 +289,24 @@ class Slot(NamedTuple):
     kind: int
     band: tuple[int, int, int, int]  # (x0, y0, w, h) on the panel
     # the source's shape as the kernel takes it: (4, sh, sw) u8 planes for
-    # PREVIEW, else (h, w) pixels, (h, w, 4) u8 or packed (h, w) int32
+    # PREVIEW and PLANES, else (h, w) pixels, (h, w, 4) u8 or packed (h, w)
+    # int32
     src: tuple[int, ...]
     parade: int = 1  # WAVEFORM: components side by side
     key_wide: bool = False  # KEYED: the canvas adds a tenth of the rect's width (OUTSIDE)
     key_tall: bool = False  # KEYED: ... or a fifth of its height (BELOW)
+    # PLANES: the selection (x0, y0, x1, y1) shaded around and outlined, or
+    # None (the planes as they are)
+    shade: Optional[tuple[int, int, int, int]] = None
+    origin: tuple[int, int] = (0, 0)  # WINDOW: the source's (x, y) at the band's top left
 
 
 class PanelTable(NamedTuple):
-    """The dynamic step's static panel layout: the slots in drawing order
-    (a later one draws over an earlier one), the capture the rect is clamped
-    into, the key legend's texture and whether the index math needs 64
-    bits."""
+    """A panel's layout as the kernel draws it: the slots in drawing order
+    (a later one draws over an earlier one; a pixel no slot covers is
+    opaque black), the capture the rect is clamped into (a table with no
+    slot of ``RECT_KINDS`` reads no rect), the key legend's texture and
+    whether the index math needs 64 bits."""
 
     out_w: int
     out_h: int
@@ -262,6 +314,32 @@ class PanelTable(NamedTuple):
     slots: tuple[Slot, ...]
     legend: Optional[torch.Tensor] = None  # KEYED: (lh, lw, 4) u8
     wide: bool = False
+
+
+@functools.lru_cache(maxsize=64)
+def static_table(layout: tuple, out: tuple[int, int]) -> PanelTable:
+    """The static panel's slot table, built once per layout: ``layout`` is
+    ((name, *:class:`Box`, source key), ...) in drawing order, the key as
+    :func:`_source_key` gives it, and ``out`` the (out_w, out_h) panel.  A
+    :class:`Preview` is a PLANES slot, a box with a ``crop`` a WINDOW slot
+    (its band the patch that slicing the source gives), any other box a
+    NEAREST slot."""
+    if len(layout) > MAX_SLOTS:
+        raise ValueError(f"static_table: {len(layout)} slots, at most {MAX_SLOTS}")
+    slots = []
+    for name, x0, y0, w, h, crop, src in layout:
+        if src[0] == "planes":
+            slots.append(Slot(name, PLANES, (x0, y0, w, h), src[1], shade=src[2]))
+        elif crop is None:
+            slots.append(Slot(name, NEAREST, (x0, y0, w, h), src[:2]))
+        else:
+            cols = range(src[1])[crop[0]:crop[0] + w]
+            rows = range(src[0])[crop[1]:crop[1] + h]
+            slots.append(Slot(name, WINDOW, (x0, y0, len(cols), len(rows)), src[:2],
+                              origin=(cols.start, rows.start)))
+    slots = tuple(slots)
+    return PanelTable(out[0], out[1], (0, 0), slots, None,
+                      index_bound(out, (0, 0), slots) >= 1 << 31)
 
 
 def panel_table(names, rects: dict, dims: dict, capture: tuple[int, int],
@@ -321,7 +399,8 @@ class _Slot(ctypes.Structure):
                 ("w", ctypes.c_int), ("h", ctypes.c_int), ("src_h", ctypes.c_int),
                 ("src_w", ctypes.c_int), ("parade", ctypes.c_int), ("key_wide", ctypes.c_int),
                 ("key_tall", ctypes.c_int), ("key_h", ctypes.c_int), ("key_w", ctypes.c_int),
-                ("src", ctypes.c_void_p), ("key", ctypes.c_void_p)]
+                ("shade", ctypes.c_int), ("sel", ctypes.c_int * 4), ("org_x", ctypes.c_int),
+                ("org_y", ctypes.c_int), ("src", ctypes.c_void_p), ("key", ctypes.c_void_p)]
 
 
 class _Params(ctypes.Structure):
@@ -332,26 +411,39 @@ class _Params(ctypes.Structure):
                 ("slots", _Slot * MAX_SLOTS)]
 
 
-def launch_params(table: PanelTable, images: dict) -> _Params:
-    """The kernel's by-value table: ``table`` with each slot's source
-    address from ``images`` (checked by :func:`check_panel_inputs`)."""
+@functools.lru_cache(maxsize=64)
+def _params_template(table: PanelTable) -> _Params:
+    """``table`` as the kernel's by-value table without the sources'
+    addresses (never written: :func:`launch_params` copies it)."""
     p = _Params(len(table.slots), table.out_w, table.out_h, *table.capture, int(table.wide))
     for i, s in enumerate(table.slots):
         key = (0, 0, None) if s.kind != KEYED else (*table.legend.shape[:2],
                                                      table.legend.data_ptr())
         p.slots[i] = _Slot(s.kind, *s.band, *s.src[-2:], s.parade, int(s.key_wide),
-                           int(s.key_tall), key[0], key[1], images[s.name].data_ptr(), key[2])
+                           int(s.key_tall), key[0], key[1], s.shade is not None,
+                           (ctypes.c_int * 4)(*(s.shade or (0, 0, 0, 0))), *s.origin, None,
+                           key[2])
+    return p
+
+
+def launch_params(table: PanelTable, images: dict) -> _Params:
+    """The kernel's by-value table: ``table`` (its cached template) with
+    each slot's source address from ``images`` (checked by
+    :func:`check_panel_inputs`)."""
+    p = _Params.from_buffer_copy(_params_template(table))
+    for i, s in enumerate(table.slots):
+        p.slots[i].src = images[s.name].data_ptr()
     return p
 
 
 def _check_image(what: str, t, shape: tuple, device) -> None:
     """Raise unless ``t`` is a contiguous tensor on ``device`` of ``shape``
     pixels: (4, h, w) u8 planes for a 3-long ``shape``, else (h, w, 4) u8 or
-    packed (h, w) int32; none of them empty."""
+    packed (h, w) int32 at a 4-byte aligned address; none of them empty."""
     if not isinstance(t, torch.Tensor):
-        raise ValueError(f"compose_dyn_panel: {what} must be a tensor, got {type(t).__name__}")
+        raise ValueError(f"dock_compose: {what} must be a tensor, got {type(t).__name__}")
     if t.device != device:
-        raise ValueError(f"compose_dyn_panel: {what} on {t.device}, the rect on {device}")
+        raise ValueError(f"dock_compose: {what} on {t.device}, the panel on {device}")
     if len(shape) == 3:
         ok = t.dtype == torch.uint8 and tuple(t.shape) == shape
     else:
@@ -360,32 +452,42 @@ def _check_image(what: str, t, shape: tuple, device) -> None:
     if not ok:
         want = f"(4, {shape[1]}, {shape[2]}) u8" if len(shape) == 3 else (
             f"({shape[0]}, {shape[1]}, 4) u8 or ({shape[0]}, {shape[1]}) int32")
-        raise ValueError(f"compose_dyn_panel: {what} must be {want}, got {tuple(t.shape)} "
+        raise ValueError(f"dock_compose: {what} must be {want}, got {tuple(t.shape)} "
                          f"{t.dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"compose_dyn_panel: {what} must be contiguous")
+        raise ValueError(f"dock_compose: {what} must be contiguous")
     if t.numel() == 0:
-        raise ValueError(f"compose_dyn_panel: {what} is empty")
+        raise ValueError(f"dock_compose: {what} is empty")
+    if len(shape) == 2 and t.data_ptr() % 4:
+        raise ValueError(f"dock_compose: {what} is not 4-byte aligned")
 
 
-def check_panel_inputs(table: PanelTable, images: dict, rect) -> None:
+def check_panel_inputs(table: PanelTable, images: dict, rect=None) -> None:
     """KC's argument checks (what the kernel takes): raise ValueError on
-    anything else.  ``rect``: a contiguous (4,) int32 tensor; ``images``:
-    each slot's source on the rect's device, of the slot's shape."""
-    if not isinstance(rect, torch.Tensor) or rect.dtype != torch.int32 or rect.shape != (4,) \
-            or not rect.is_contiguous():
-        raise ValueError(f"compose_dyn_panel: rect must be a contiguous (4,) int32 tensor, got "
-                         f"{getattr(rect, 'shape', rect)} {getattr(rect, 'dtype', '')}")
+    anything else.  ``rect``: a contiguous (4,) int32 tensor for a table
+    with a slot of ``RECT_KINDS``, else None; ``images``: each slot's
+    source, of the slot's shape, on the rect's device (a static table's:
+    on its first source's)."""
+    if any(s.kind in RECT_KINDS for s in table.slots):
+        if not isinstance(rect, torch.Tensor) or rect.dtype != torch.int32 \
+                or rect.shape != (4,) or not rect.is_contiguous():
+            raise ValueError(f"dock_compose: rect must be a contiguous (4,) int32 tensor, got "
+                             f"{getattr(rect, 'shape', rect)} {getattr(rect, 'dtype', '')}")
+    elif rect is not None:
+        raise ValueError("dock_compose: a static table takes no rect")
     if len(table.slots) > MAX_SLOTS:
-        raise ValueError(f"compose_dyn_panel: {len(table.slots)} slots, at most {MAX_SLOTS}")
+        raise ValueError(f"dock_compose: {len(table.slots)} slots, at most {MAX_SLOTS}")
+    device = None if rect is None else rect.device
     for s in table.slots:
         if s.name not in images:
-            raise ValueError(f"compose_dyn_panel: no image for the {s.name} slot")
-        _check_image(s.name, images[s.name], s.src, rect.device)
+            raise ValueError(f"dock_compose: no image for the {s.name} slot")
+        if device is None:
+            device = getattr(images[s.name], "device", None)
+        _check_image(s.name, images[s.name], s.src, device)
         if s.kind == KEYED:
             lg = table.legend
             shape = tuple(lg.shape[:2]) if isinstance(lg, torch.Tensor) else (1, 1)
-            _check_image("the key legend", lg, shape, rect.device)
+            _check_image("the key legend", lg, shape, device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -398,7 +500,7 @@ def assemble_dyn_panel(table: PanelTable, images: dict,
                        rect: torch.Tensor) -> torch.Tensor:
     """The dynamic-ROI step's (out_h, out_w, 4) u8 panel in torch ops (the
     JAX step_dyn's composite, ``dock_step.py:485-710``): the plain version
-    of :func:`compose_dyn_panel`'s kernel, run for a CPU rect.
+    of :func:`compose_panel`'s kernel on this table, run for a CPU rect.
     ``images``: the scope name -> the slot's source (for ``roi`` the
     capture's planes); ``rect``: the (4,) int32 rect, clamped into the
     capture here.  Every index the slot samplers gather by is an integer
@@ -478,20 +580,54 @@ def assemble_dyn_panel(table: PanelTable, images: dict,
     return compose_vstack(patches, table.out_w, table.out_h)
 
 
-def compose_dyn_panel(table: PanelTable, images: dict, rect: torch.Tensor) -> torch.Tensor:
-    """KC: the dynamic-ROI step's (out_h, out_w, 4) u8 panel from its slot
-    table, its images (the scope name -> the slot's source: for ``roi`` the
-    (4, sh, sw) u8 capture planes, for the others their (h, w, 4) u8 or
-    packed (h, w) int32 image) and its (4,) int32 rect, which the kernel
-    reads on the device and clamps into the capture
-    (:func:`convert.clamp_rect`): a new rect changes no launch.  A CPU rect
-    runs the plain version, :func:`assemble_dyn_panel`; a CUDA rect
-    launches the kernel, whose panel equals it byte for byte."""
-    dev = rect.device
+def assemble_static_panel(table: PanelTable, images: dict) -> torch.Tensor:
+    """A static table's (out_h, out_w, 4) u8 panel in torch ops: the plain
+    version of :func:`compose_panel`'s kernel on this table, run for CPU
+    images.  Each slot's patch (the planes interleaved, shaded where the
+    slot says, then nearest-resized; a nearest resize; a window's slice)
+    goes onto the canvas by :func:`compose_vstack`."""
+    patches = []
+    for s in table.slots:
+        x0, y0, w, h = s.band
+        img = images[s.name]
+        if s.kind == PLANES:
+            img = Preview(img, s.shade).rgba()
+        if s.kind == WINDOW:
+            ox, oy = s.origin
+            patch = _rgba_view(img)[oy:oy + h, ox:ox + w]
+        else:
+            patch = _resize_nearest_rgba(img, h, w)
+        patches.append((x0, y0, patch))
+    return compose_vstack(patches, table.out_w, table.out_h)
+
+
+def compose_panel(table: PanelTable, images: dict,
+                  rect: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KC: a panel's (out_h, out_w, 4) u8 image from its slot table and
+    ``images`` (the scope name -> the slot's source: for a PREVIEW or
+    PLANES slot the (4, sh, sw) u8 capture planes, for the others an
+    (h, w, 4) u8 or packed (h, w) int32 image).  A table with a slot of
+    ``RECT_KINDS`` (the dynamic step's, :func:`panel_table`) takes its
+    (4,) int32 ``rect``, which the kernel reads on the device and clamps
+    into the capture (:func:`convert.clamp_rect`): a new rect changes no
+    launch.  Any other table (:func:`static_table`) takes none.  On the
+    CPU (the rect's device, else the first source's; a table of no slot
+    too) it runs the plain version, :func:`assemble_dyn_panel` or
+    :func:`assemble_static_panel`; on a card it launches the kernel once,
+    whose panel equals it byte for byte, counted in
+    ``compose_panel.launches``; an empty panel launches nothing."""
+    dynamic = any(s.kind in RECT_KINDS for s in table.slots)
+    if dynamic != (rect is not None):
+        raise ValueError("compose_panel: a table with a slot that reads the rect takes a rect, "
+                         "any other none")
+    src = rect if dynamic else images[table.slots[0].name] if table.slots else None
+    dev = getattr(src, "device", torch.device("cpu"))
     if dev.type == "cpu":
-        return assemble_dyn_panel(table, images, rect)
+        if dynamic:
+            return assemble_dyn_panel(table, images, rect)
+        return assemble_static_panel(table, images)
     if dev.type != "cuda":
-        raise ValueError(f"compose_dyn_panel: unsupported device {dev}")
+        raise ValueError(f"compose_panel: unsupported device {dev}")
     check_panel_inputs(table, images, rect)
     out = torch.empty((table.out_h, table.out_w, 4), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
@@ -499,11 +635,12 @@ def compose_dyn_panel(table: PanelTable, images: dict, rect: torch.Tensor) -> to
     params = launch_params(table, images)
     lib = _kernels.library()
     with torch.cuda.device(dev):
-        rc = lib.ocm_dock_compose(ctypes.byref(params), ctypes.sizeof(params), rect.data_ptr(),
-                                  out.data_ptr(), _kernels.stream_handle(dev))
-    compose_dyn_panel.launches += 1
+        rc = lib.ocm_dock_compose(ctypes.byref(params), ctypes.sizeof(params),
+                                  None if rect is None else rect.data_ptr(), out.data_ptr(),
+                                  _kernels.stream_handle(dev))
+    compose_panel.launches += 1
     _kernels.check(rc, "dock_compose")
     return out
 
 
-compose_dyn_panel.launches = 0
+compose_panel.launches = 0

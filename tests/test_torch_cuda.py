@@ -677,6 +677,92 @@ def test_driver_pushes_while_worker_captures(cuda):
         assert np.array_equal(panels[i], want), i
 
 
+def test_driver_uploads_beside_a_capture_on_the_pools_capture_stream(cuda):
+    """PyTorch's default-priority stream pool hands out its 32 streams in
+    turn, and ``torch.cuda.graph``'s default capture stream is one of them:
+    a driver whose upload stream is drawn 32 draws after it (a process that
+    made enough streams first) uploads on that very stream.  Fed while its
+    worker captures the settled step, such a driver still has no worker
+    error and lands every accepted frame equal to a directly driven Dock's,
+    because captures record on a stream of their own
+    (``graphs.capture_stream``), which is none of the pool's."""
+    from obs_color_monitor_tpu_torch import graphs
+    from obs_color_monitor_tpu_torch.pipeline import PipelineDriver
+
+    if torch.cuda.graph.default_capture_stream is None:
+        torch.cuda.graph.default_capture_stream = torch.cuda.Stream(cuda)
+    default = torch.cuda.graph.default_capture_stream.cuda_stream
+    pool = {torch.cuda.Stream(cuda).cuda_stream for _ in range(32)}
+    assert default in pool and graphs.capture_stream(cuda).cuda_stream not in pool
+    bufs = _nv12_frames(40, seed=42)
+    dock = _driver_dock(cuda)
+    panels = []
+    drv = PipelineDriver(dock=dock, on_panel=lambda p: panels.append(p.cpu().numpy()))
+    accepted = []
+    drv.start()
+    try:
+        while torch.cuda.Stream(cuda).cuda_stream != default:
+            pass
+        for _ in range(31):  # the next draw, the upload stream's, is the capture stream's
+            torch.cuda.Stream(cuda)
+        for b in bufs:
+            if drv.push_nv12(b[:270], b[270:]):
+                accepted.append(b)
+        drv.flush()
+    finally:
+        drv.stop()
+    assert drv._stager.stream.cuda_stream == default
+    assert drv.stats["errors"] == 0 and dock._settled.graphs == 1
+    assert len(panels) == len(accepted) == drv.stats["processed"]
+    for i, want in enumerate(_direct_panels(cuda, accepted)):
+        assert np.array_equal(panels[i], want), i
+
+
+def test_capture_beside_a_thread_on_every_pool_stream(cuda):
+    """While a step is captured, another thread records an event on each of
+    the 32 streams of the default-priority pool (where a driver draws its
+    upload stream) behind a copy and waits on it: every wait returns, the
+    copies land, and the graph replays the step alone."""
+    import threading
+
+    from obs_color_monitor_tpu_torch.graphs import captured
+
+    pool = [torch.cuda.Stream(cuda) for _ in range(32)]
+    src = torch.arange(64, dtype=torch.int32, device=cuda)
+    dst = [torch.zeros_like(src) for _ in pool]
+    errors = []
+
+    def other():
+        try:
+            for s, d in zip(pool, dst):
+                ev = torch.cuda.Event()
+                with torch.cuda.stream(s):
+                    d.copy_(src)
+                ev.record(s)
+                ev.synchronize()
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    def fn(t):
+        if torch.cuda.is_current_stream_capturing():
+            th = threading.Thread(target=other)
+            th.start()
+            th.join()
+        return t * 2
+
+    x = torch.arange(8, dtype=torch.float32, device=cuda)
+    step = captured(fn, cuda)
+    out = step(x)
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert all(torch.equal(d, src) for d in dst)
+    for d in dst:
+        d.zero_()
+    assert torch.equal(out, x * 2) and torch.equal(step(x + 1), (x + 1) * 2)
+    torch.cuda.synchronize()
+    assert all(not d.any() for d in dst)
+
+
 def test_driver_pinned_ring_reuse(cuda):
     """More pushes than the pinned ring has slots (queue depth 1: 3 slots),
     a flush after each: every panel equal to a directly driven Dock's, one
@@ -1058,18 +1144,18 @@ def test_dock_compose_kernel_equals_plain_assembly(cuda, layout, monkeypatch):
                                  device=dev, **kw) for dev in (cuda, "cpu")}
     for r in COMPOSE_RECTS:
         rect = torch.tensor(r, dtype=torch.int32, device=cuda)
-        n = compose.compose_dyn_panel.launches
+        n = compose.compose_panel.launches
         table, images, got_rect, out = _recorded_assembly(
             steps[cuda], torch.from_numpy(f).to(cuda), rect, monkeypatch)
-        assert compose.compose_dyn_panel.launches == n + 1 and got_rect is rect
+        assert compose.compose_panel.launches == n + 1 and got_rect is rect
         plain = compose.assemble_dyn_panel(table, images, rect)
         assert torch.equal(out.panel, plain), (layout, r)
-        wide = compose.compose_dyn_panel(table._replace(wide=True), images, rect)
+        wide = compose.compose_panel(table._replace(wide=True), images, rect)
         torch.cuda.synchronize()
         assert torch.equal(wide, plain), (layout, r)
-        n = compose.compose_dyn_panel.launches
+        n = compose.compose_panel.launches
         ref = steps["cpu"](torch.from_numpy(f), 1.25, torch.tensor(r, dtype=torch.int32))
-        assert compose.compose_dyn_panel.launches == n
+        assert compose.compose_panel.launches == n
         assert np.array_equal(out.panel.cpu().numpy(), ref.panel.numpy()), (layout, r)
 
 
@@ -1087,10 +1173,10 @@ def test_dock_compose_captured_step_replays_ten_rects(cuda):
     x = frame_from_numpy((y, uv), "nv12", cuda)
     steps[cuda](x, 0.5, torch.tensor(COMPOSE_RECTS[1], dtype=torch.int32, device=cuda))
     for r in COMPOSE_RECTS:
-        n = compose.compose_dyn_panel.launches
+        n = compose.compose_panel.launches
         got = steps[cuda](x, 0.5, torch.tensor(r, dtype=torch.int32, device=cuda))
         torch.cuda.synchronize()
-        assert compose.compose_dyn_panel.launches == n + 1
+        assert compose.compose_panel.launches == n + 1
         ref = steps["cpu"](frame_from_numpy((y, uv), "nv12", "cpu"), 0.5,
                            torch.tensor(r, dtype=torch.int32))
         for k, v in ref.to_numpy().items():
@@ -1113,7 +1199,7 @@ def test_dock_compose_counts_fused_frames(cuda):
         dock.push_nv12(b[:48], b[48:])
         dock.render_async()
     x0, y0, w, h, _, _ = dock._rects["roi"]
-    n = compose.compose_dyn_panel.launches
+    n = compose.compose_panel.launches
     profiler.reset()
     profiler.enable(True)
     try:
@@ -1129,7 +1215,103 @@ def test_dock_compose_counts_fused_frames(cuda):
         profiler.enable(False)
         profiler.reset()
     dynamic = sum(s["name"] == "dock.dynamic" for s in snap["spans"])
-    assert dynamic == 4 and compose.compose_dyn_panel.launches - n == dynamic
+    assert dynamic == 4 and compose.compose_panel.launches - n == dynamic
+
+
+# KC on a static table (ops/compose.compose_panel): the settled route's
+# and the static step's panel in one launch
+@pytest.mark.parametrize("case", ["full_preview_packed_13x17", "cropped_preview_rgba_129x131",
+                                  "shaded_rect_w17", "shaded_empty_rect", "actual_size_cropped",
+                                  "actual_size_whole_129x131", "too_short_overlapping",
+                                  "left_out_keep_height", "window_past_the_source"])
+def test_static_compose_kernel_equals_the_chain(cuda, case):
+    """Every case of the CPU tests' static panels: one launch draws the
+    panel of the plain version on the same sources, byte for byte, in
+    int32 and in 64-bit index math, and the CPU's."""
+    from test_torch_dock_compose import STATIC_CASES, _static_sources
+
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    assert case in STATIC_CASES
+    images, boxes, out = _static_sources(case)
+    on_card = {n: compose.Preview(img.planes.to(cuda), img.rect)
+               if isinstance(img, compose.Preview) else img.to(cuda)
+               for n, img in images.items()}
+    want = compose.assemble_panel(images, boxes, *out)
+    n = compose.compose_panel.launches
+    got = compose.assemble_panel(on_card, boxes, *out)
+    assert compose.compose_panel.launches == n + 1
+    table, sources = compose.static_inputs(on_card, boxes, *out)
+    plain = compose.assemble_static_panel(table, sources)
+    wide = compose.compose_panel(table._replace(wide=True), sources)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain) and torch.equal(wide, plain), case
+    assert np.array_equal(got.cpu().numpy(), want.numpy()), case
+
+
+def _static_dock(device, h, w, interleave=0, **show):
+    """A streaming Dock on NV12 frames at the benchmark's settings (a
+    512x1536 panel, stats at target_scale 2), settled after three frames."""
+    from obs_color_monitor_tpu_torch.models import Dock
+
+    dock = Dock(DockConfig(width=512, height=1536, **show),
+                roi=cfg.ROIConfig(interleave=interleave, target_scale=2), device=device)
+    rng = np.random.default_rng(h + w + interleave)
+    frames = [rng.integers(0, 256, (h * 3 // 2, w), np.uint8) for _ in range(4)]
+    for b in frames[:3]:
+        dock.push_nv12(b[:h], b[h:])
+        dock.render_async()
+    return dock, frames
+
+
+@pytest.mark.parametrize("layout", ["uhd", "desktop", "uhd_interleave1"])
+def test_static_compose_dock_frames(cuda, layout, monkeypatch):
+    """The benchmark's settled docks on the card (4K NV12 with focus
+    peaking; the 2560x1440 desktop without it; 4K at interleave 1): a
+    settled frame's replay and a skipped frame's eager composite each make
+    one static KC launch, counted per replay, with one graph for every
+    frame; each panel equals the same Dock's with the plain version of the
+    table (captured and eager)."""
+    from obs_color_monitor_tpu_torch.ops import compose
+    from obs_color_monitor_tpu_torch.pipeline import profiler
+
+    h, w, inter, show = {"uhd": (2160, 3840, 0, dict(show_focuspeaking=True)),
+                         "desktop": (1440, 2560, 0, {}),
+                         "uhd_interleave1": (2160, 3840, 1, dict(show_focuspeaking=True))}[layout]
+
+    def plain(table, images, rect=None):
+        assert rect is None
+        return compose.assemble_static_panel(table, images)
+
+    plain.launches = 0  # a capture reads and restores it
+    dock, frames = _static_dock(cuda, h, w, inter, **show)
+    step = dock._settled
+    got, want = [], []
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        for k in range(6):
+            b = frames[k % 4]
+            n = compose.compose_panel.launches
+            dock.push_nv12(b[:h], b[h:])
+            got.append(dock.render_async().cpu())
+            assert compose.compose_panel.launches == n + 1, k
+        snap = profiler.snapshot()
+    finally:
+        profiler.enable(False)
+        profiler.reset()
+    assert dock._settled is step and not snap["counters"].get("step.captures")
+    assert snap["counters"].get("dock.skipped", 0) == 3 * inter
+    with monkeypatch.context() as mp:
+        mp.setattr(compose, "compose_panel", plain)
+        ref, _ = _static_dock(cuda, h, w, inter, **show)
+        for k in range(6):
+            b = frames[k % 4]
+            ref.push_nv12(b[:h], b[h:])
+            want.append(ref.render_async().cpu())
+    assert dock._settled.graphs == 1 and ref._settled.graphs == 1
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), (layout, k)
 
 
 # KR, the stats scopes' images in one launch (ops/render.draw_stat_images),

@@ -120,15 +120,15 @@ def test_index_math_width():
 
 def _images(step, rect=(5, 4, 30, 20)):
     """The step's own slot images and rect, recorded at the wrapper."""
-    seen, wrapper = {}, C.compose_dyn_panel
+    seen, wrapper = {}, C.compose_panel
 
-    def spy(table, images, r):
+    def spy(table, images, r=None):
         seen.update(table=table, images=dict(images), rect=r)
         return wrapper(table, images, r)
 
     frame = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (H, W, 4), np.uint8))
     mp = pytest.MonkeyPatch()
-    mp.setattr(dock_step.compose, "compose_dyn_panel", spy)
+    mp.setattr(dock_step.compose, "compose_panel", spy)
     try:
         out = step(frame, 0.5, torch.tensor(rect, dtype=torch.int32))
     finally:
@@ -157,8 +157,9 @@ def test_launch_params_mirror_the_table(layout):
                                                  table.legend.data_ptr())
         else:
             assert (q.key_h, q.key_w, q.key) == (0, 0, None)
-    assert ctypes.sizeof(C._Slot) == 64 and C._Params.slots.offset == 24
-    assert ctypes.sizeof(C._Params) == 24 + 64 * C.MAX_SLOTS
+        assert (q.shade, tuple(q.sel), q.org_x, q.org_y) == (0, (0, 0, 0, 0), 0, 0)
+    assert ctypes.sizeof(C._Slot) == 96 and C._Params.slots.offset == 24
+    assert C._Slot.src.offset == 80 and ctypes.sizeof(C._Params) == 24 + 96 * C.MAX_SLOTS
 
 
 def test_checks_refuse_what_the_kernel_does_not_take():
@@ -194,7 +195,9 @@ def test_checks_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         C.check_panel_inputs(table._replace(legend=table.legend[:0]), images, rect)
     with pytest.raises(ValueError):
-        C.compose_dyn_panel(table, images, rect.to("meta"))
+        C.compose_panel(table, images, rect.to("meta"))
+    with pytest.raises(ValueError):  # a table that reads the rect takes one
+        C.compose_panel(table, images)
 
 
 def test_cpu_rect_runs_the_plain_assembly():
@@ -202,27 +205,28 @@ def test_cpu_rect_runs_the_plain_assembly():
     step's panel, and launches nothing."""
     step = _step(LAYOUTS["stack_below_actual"][0])
     table, images, rect, panel = _images(step)
-    n = C.compose_dyn_panel.launches
-    got = C.compose_dyn_panel(table, images, rect)
-    assert C.compose_dyn_panel.launches == n
+    n = C.compose_panel.launches
+    got = C.compose_panel(table, images, rect)
+    assert C.compose_panel.launches == n
     assert torch.equal(got, C.assemble_dyn_panel(table, images, rect))
     assert torch.equal(got, panel) and got.shape == (784, 128, 4) and got.dtype == torch.uint8
-    assert (C.compose_dyn_panel, "launches") in _counters()
+    assert (C.compose_panel, "launches") in _counters()
 
 
 def test_dock_counts_each_dynamic_frame_plain_on_the_cpu(monkeypatch):
     """A drag through a CPU Dock: every ``dock.dynamic`` frame assembles
-    its panel with one ``compose_dyn_panel`` call, which launches nothing;
-    a settled frame makes none."""
+    its panel with one ``compose_panel`` call on its rect, which launches
+    nothing; a settled frame makes none with a rect."""
     dock = Dock(DockConfig(), roi=cfg.ROIConfig(interleave=0, target_scale=2, x0=8, y0=4,
                                                 x1=32, y1=16), device="cpu")
-    calls, wrapper = [], C.compose_dyn_panel
+    calls, wrapper = [], C.compose_panel
 
-    def spy(table, images, rect):
-        calls.append(rect)
+    def spy(table, images, rect=None):
+        if rect is not None:
+            calls.append(rect)
         return wrapper(table, images, rect)
 
-    monkeypatch.setattr(C, "compose_dyn_panel", spy)
+    monkeypatch.setattr(C, "compose_panel", spy)
     rng = np.random.default_rng(2)
     planes = [rng.integers(0, 256, (72, 96), dtype=np.uint8) for _ in range(6)]
     for b in planes[:2]:
@@ -249,3 +253,135 @@ def test_dock_counts_each_dynamic_frame_plain_on_the_cpu(monkeypatch):
     dynamic = sum(s["name"] == "dock.dynamic" for s in snap["spans"])
     assert dynamic == 4 and len(calls) == dynamic
     assert wrapper.launches == n
+
+
+# The static panel (the settled route's, the static step's): configuration
+# -> (capture (h, w), panel (cx, cy), the shown scopes, focus peaking at
+# actual size, the preview's selection or None, packed sources, the scopes
+# left out after the layout (their bands stay taken; "one_pixel": none,
+# every box at least one pixel, the static step's edge rule), extra boxes
+# by name)
+ALL7 = tuple(dock_step.SCOPE_ORDER)
+STATIC_CASES = {
+    "full_preview_packed_13x17": ((13, 17), (130, 700), ALL7, False, None, True, (), {}),
+    "cropped_preview_rgba_129x131": ((129, 131), (132, 900), ALL7, False, None, False, (), {}),
+    "shaded_rect_w17": ((60, 88), (17, 400), ALL7, False, (5, 4, 30, 20), True, (), {}),
+    "shaded_empty_rect": ((60, 88), (130, 600), ALL7[:4], False, (10, 10, 10, 30), False, (),
+                          {}),
+    "actual_size_cropped": ((60, 88), (40, 900), ALL7, True, None, True, (), {}),
+    "actual_size_whole_129x131": ((129, 131), (132, 1100), ALL7, True, (3, 1, 120, 128), False,
+                                  (), {}),
+    "too_short_overlapping": ((60, 88), (50, 5), ALL7, True, None, True, "one_pixel", {}),
+    "left_out_keep_height": ((60, 88), (130, 800), ALL7, False, None, False,
+                             ("waveform", "zebra"), {}),
+    "window_past_the_source": ((60, 88), (132, 300), ("roi", "focuspeaking"), False, None, True,
+                               (), {"focuspeaking": C.Box(41, 100, 50, 30, (70, 5))}),
+}
+
+
+def _static_sources(case):
+    """The case's panel sources (a :class:`compose.Preview` for the roi)
+    and boxes, the Dock's way: :func:`compose.panel_layout` over the
+    sources' dims, the scopes left out dropped."""
+    (sh, sw), (cx, cy), shown, fp_actual, sel, packed, left_out, extra = STATIC_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    dims = {"roi": (sw, sh), "vectorscope": (256, 256), "waveform": (sw, 256),
+            "histogram": (256, 200), "zebra": (sw, sh), "falsecolor": (sw, sh),
+            "focuspeaking": (sw, sh)}
+    images = {}
+    for n in shown:
+        w, h = dims[n]
+        if n == "roi":
+            planes = torch.from_numpy(rng.integers(0, 256, (4, h, w), np.uint8))
+            images[n] = C.Preview(planes, sel)
+        else:
+            img = torch.from_numpy(rng.integers(0, 256, (h, w, 4), np.uint8))
+            images[n] = img.view(torch.int32)[..., 0] if packed else img
+    layout = C.panel_layout([(n, *dims[n]) for n in shown], cx, cy, fp_actual)
+    if left_out == "one_pixel":
+        boxes = {n: b._replace(w=max(b.w, 1), h=max(b.h, 1)) for n, (_, b) in layout.items()}
+    else:
+        boxes = {n: b for n, (_, b) in layout.items()
+                 if n not in left_out and b.w > 0 and b.h > 0}
+    boxes.update(extra)
+    return images, boxes, (cx, cy)
+
+
+def _chain_reference(images, boxes, out):
+    """The static panel as numpy draws it: each box's patch (the preview's
+    planes interleaved, 50 % black outside its selection and a green
+    border, nearest-resized by ``min(i * n_src // n_out, n_src - 1)``; a
+    crop's slice) pasted in order onto an opaque-black canvas, clipped."""
+    cx, cy = out
+    canvas = np.zeros((cy, cx, 4), np.uint8)
+    canvas[..., 3] = 255
+    for n, b in boxes.items():
+        img = images[n]
+        if isinstance(img, C.Preview):
+            p = img.planes.numpy().astype(np.int32)
+            rgba = np.moveaxis(p, 0, -1).copy()
+            if img.rect is not None:
+                x0, y0, x1, y1 = img.rect
+                ri, ci = np.arange(p.shape[1])[:, None], np.arange(p.shape[2])[None, :]
+                inside = (ri >= y0) & (ri < y1) & (ci >= x0) & (ci < x1)
+                border = (((ri == y0) | (ri == y1 - 1)) & (ci >= x0) & (ci < x1)) | (
+                    ((ci == x0) | (ci == x1 - 1)) & (ri >= y0) & (ri < y1))
+                rgba[..., :3] = np.where(inside[..., None], rgba[..., :3],
+                                         rgba[..., :3] * 128 // 255)
+                rgba[border] = (0, 255, 0, 255)
+            src = rgba.astype(np.uint8)
+        else:
+            src = img.contiguous().view(torch.uint8).reshape(*img.shape[:2], 4).numpy()
+        if b.crop is None:
+            rows = np.minimum(np.arange(b.h) * src.shape[0] // b.h, src.shape[0] - 1)
+            cols = np.minimum(np.arange(b.w) * src.shape[1] // b.w, src.shape[1] - 1)
+            patch = src[rows][:, cols]
+        else:
+            patch = src[b.crop[1]:b.crop[1] + b.h, b.crop[0]:b.crop[0] + b.w]
+        y0c, x0c = max(b.y0, 0), max(b.x0, 0)
+        y1c, x1c = min(b.y0 + patch.shape[0], cy), min(b.x0 + patch.shape[1], cx)
+        if y1c > y0c and x1c > x0c:
+            canvas[y0c:y1c, x0c:x1c] = patch[y0c - b.y0:y1c - b.y0, x0c - b.x0:x1c - b.x0]
+    return canvas
+
+
+@pytest.mark.parametrize("case", sorted(STATIC_CASES))
+def test_static_table_plain_equals_the_chain(case):
+    """Every static slot kind (the plain and the shaded preview from the
+    capture's planes, a nearest resize of a packed or an (H, W, 4) source,
+    focus peaking's 1:1 window), on odd shapes and panel widths, a panel
+    too short for its slots and scopes left out: the table's plain version
+    equals the chain byte for byte; the table is built once per layout,
+    its by-value mirror carries each kind's constants, and its checks take
+    no rect."""
+    images, boxes, out = _static_sources(case)
+    want = _chain_reference(images, boxes, out)
+    C.static_table.cache_clear()
+    got = C.assemble_panel(images, boxes, *out)
+    assert got.dtype == torch.uint8 and np.array_equal(got.numpy(), want)
+    table, sources = C.static_inputs(images, boxes, *out)
+    assert C.static_table.cache_info()[:2] == (1, 1)  # (hits, misses)
+    assert not table.wide and [s.name for s in table.slots] == list(boxes)
+    assert sources == {n: img.planes if isinstance(img, C.Preview) else img
+                       for n, img in images.items()}
+    assert np.array_equal(C.assemble_static_panel(table, sources).numpy(), want)
+    assert C.compose_panel(table, sources).shape == (out[1], out[0], 4)
+    C.check_panel_inputs(table, sources)
+    with pytest.raises(ValueError):
+        C.check_panel_inputs(table, sources, torch.zeros(4, dtype=torch.int32))
+    p = C.launch_params(table, sources)
+    assert (p.n_slots, p.out_w, p.out_h, p.wide) == (len(boxes), *out, 0)
+    for i, s in enumerate(table.slots):
+        q, b = p.slots[i], boxes[s.name]
+        assert q.kind == s.kind and q.src == sources[s.name].data_ptr()
+        if isinstance(images[s.name], C.Preview):
+            assert s.kind == C.PLANES and s.src == tuple(images[s.name].planes.shape)
+            sel = images[s.name].rect
+            assert (q.shade, tuple(q.sel)) == (sel is not None, sel or (0, 0, 0, 0))
+        elif b.crop is None:
+            assert s.kind == C.NEAREST and (q.x0, q.y0, q.w, q.h) == b[:4]
+        else:
+            # the band is the slice the window takes of the source
+            sh, sw = s.src
+            assert s.kind == C.WINDOW and (q.org_x, q.org_y) == b.crop
+            assert (q.w, q.h) == (min(b.w, sw - b.crop[0]), min(b.h, sh - b.crop[1]))

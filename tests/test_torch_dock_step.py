@@ -266,3 +266,66 @@ def test_blend_and_zoom_match_jax(zoom):
     assert np.array_equal(got, np.asarray(ref))
     got = tr.zoom_center(torch.from_numpy(img), zoom).numpy()
     assert np.array_equal(got, np.asarray(jr.zoom_center(jnp.asarray(img), zoom=zoom)))
+
+
+# The settled route's host work, on the CPU: the benchmark's three
+# settled-route docks at an eighth of their frame size -> (frame (h, w), the
+# dock's keywords, roi.interleave)
+SETTLED_ROUTES = {
+    "uhd_eighth": ((270, 480), dict(show_focuspeaking=True), 0),
+    "desktop_eighth": ((180, 320), dict(), 0),
+    "uhd_eighth_interleave1": ((270, 480), dict(show_focuspeaking=True), 1),
+}
+
+
+@pytest.mark.parametrize("route", sorted(SETTLED_ROUTES))
+def test_settled_route_builds_each_table_once(route, monkeypatch):
+    """A streaming Dock through 30 settled frames (and at interleave 1 the
+    30 skipped frames between them): the settled step's key does not change
+    after the first settled frame, the panel's slot table is built once per
+    layout (none after the first settled or skipped frame), and the
+    tracked objects do not grow from frame to frame."""
+    import gc
+
+    from obs_color_monitor_tpu_torch.config import DockConfig, ROIConfig
+    from obs_color_monitor_tpu_torch.models import Dock
+    from obs_color_monitor_tpu_torch.ops import compose
+
+    (h, w), show, interleave = SETTLED_ROUTES[route]
+    dock = Dock(DockConfig(width=512, height=1536, **show),
+                roi=ROIConfig(interleave=interleave, target_scale=2), device="cpu")
+    table = compose.static_table
+    table.cache_clear()
+    layouts = set()
+
+    def spy(layout, out):
+        layouts.add(layout)
+        return table(layout, out)
+
+    monkeypatch.setattr(compose, "static_table", spy)
+    rng = np.random.default_rng(len(route))
+    planes = [rng.integers(0, 256, (h * 3 // 2, w), np.uint8) for _ in range(3)]
+    keys, misses, routes, tracked = [], [], [], {}
+    hub = dock.hub
+    for i in range(4 + 30 * (1 + interleave)):
+        if i in (12, 4 + 30 * (1 + interleave) - 1):
+            gc.collect()
+            tracked[i] = len(gc.get_objects())
+        done = (hub.frames_processed, hub.frames_skipped)
+        b = planes[i % 3]
+        dock.push_nv12(b[:h], b[h:])
+        dock.render_async()
+        keys.append(dock._settled_key)
+        misses.append(table.cache_info().misses)
+        routes.append("skipped" if hub.frames_skipped > done[1] else
+                      "settled" if keys[-1] is not None and hub.frames_processed > done[0]
+                      else "fanout")
+    first = keys.index(next(k for k in keys if k is not None))
+    assert first <= 3 and all(k == keys[first] for k in keys[first:])
+    assert routes[first:].count("settled") >= 30 and "fanout" not in routes[first + 1:]
+    assert routes[first:] == ["settled", "skipped"][:1 + interleave] * (
+        (len(routes) - first) // (1 + interleave)), routes
+    assert table.cache_info().misses == len(layouts)
+    assert misses[-1] == misses[first + interleave]
+    (a, n_a), (b, n_b) = sorted(tracked.items())
+    assert n_b - n_a < b - a, tracked
